@@ -7,10 +7,13 @@ Builds every CUDA kernel from csrc/ (one nvcc a source, in parallel), holds
 each kernel against its plain PyTorch version at the model's shapes, runs
 the full-width UniPose (ResNet-101 OS16, LSP 14 joints, 368x368) in f32
 against its plain-WASP twin and the committed JAX golden heatmaps, then
-drives the main path -- the image server, built in-process, answering
-concurrent requests -- and shows through the kernels' launch counts that
-the path ran through them.  Prints one JSON object a phase, a ``kernels``
-line, the card's name and power limit, and as its last line
+drives the two main paths and shows through the kernels' launch counts
+that each ran through its kernels: the image server, built in-process,
+answering concurrent requests (``wasp_cascade``), and the Trainer taking an
+epoch of steps and validating (``heatmap_mse`` forward and backward, and
+``wasp_cascade`` in validation); then a fresh Trainer takes ten steps on one
+batch, which must lower the loss.  Prints one JSON object a phase, a
+``kernels`` line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA card or any phase fails.
 """
@@ -30,7 +33,8 @@ import numpy as np
 import torch
 
 from unipose_tpu_torch.cli import serve
-from unipose_tpu_torch.core.config import ModelConfig
+from unipose_tpu_torch.core.config import DATASETS, ModelConfig, TrainConfig
+from unipose_tpu_torch.data.synthetic import make_loaders
 from unipose_tpu_torch.models.unipose import (
     build_model,
     init_model,
@@ -39,8 +43,11 @@ from unipose_tpu_torch.models.unipose import (
 )
 from unipose_tpu_torch.ops import kernels
 from unipose_tpu_torch.ops.kernels import build
+from unipose_tpu_torch.ops.kernels import heatmap_mse as hm
 from unipose_tpu_torch.ops.kernels import wasp_cascade as wc
-from unipose_tpu_torch.train.steps import preprocess_images
+from unipose_tpu_torch.train.state import create_train_state
+from unipose_tpu_torch.train.steps import make_train_step, preprocess_images
+from unipose_tpu_torch.train.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "golden_heatmaps_reduced_368.npz"
@@ -58,6 +65,21 @@ KERNEL_BATCHES = (1, 32)
 MODEL_BATCHES = (1, 32)
 MODEL_PAIRS = 20
 
+# heatmap_mse: (batch, joints, sigma) at 46x46 (368x368, stride 8); LSP has
+# 14 joints (15 channels), NTID 19 (20); sigma 3 for images, 1 for video.
+HM_CASES = ((1, 14, 3.0), (8, 14, 3.0), (32, 14, 3.0), (1, 14, 1.0), (8, 14, 1.0),
+            (32, 14, 1.0), (8, 19, 3.0))
+HM_MAIN = (torch.float32, 8, 14, 3.0)  # the train step's loss: f32, batch 8, LSP
+# The loss, in either dtype, is one f32 sum of the same f32 values taken in
+# another order: relative error 1e-5.  dpred, f32: 1e-5.  dpred, bf16: both
+# compute in f32 from the same bf16 values and round dpred once; an expf
+# differing in its last bit can flip that rounding by one bf16 ulp (2^-8 =
+# 3.9e-3 relative), so 1e-2.
+LOSS_TOL = 1e-5
+DPRED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+TRAIN_BATCH = 8  # the reference's batch (cli/train.py:121)
+TRAIN_TIMED_STEPS = 10
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -72,14 +94,18 @@ def gpu_line() -> str:
 
 
 def max_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a - b| / max|b| (max|a - b| where b is all zero)."""
     a, b = a.double(), b.double()
-    return float((a - b).abs().max() / b.abs().max())
+    diff, scale = float((a - b).abs().max()), float(b.abs().max())
+    return diff / scale if scale > 0 else diff
 
 
-def call_ms(fn, flush: torch.Tensor) -> float:
+def call_ms(fn, flush=None) -> float:
     """Time of one fn() call between two CUDA events, with the 50 MB L2
-    overwritten first (a caller inside the model finds it cold)."""
-    flush.zero_()
+    overwritten first when ``flush`` is given (a caller inside the model
+    finds it cold)."""
+    if flush is not None:
+        flush.zero_()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -118,10 +144,20 @@ def paired_ms(fn_a, fn_b, pairs: int, flush: torch.Tensor) -> dict:
             "a_won": sum(x < y for x, y in zip(a, b)) / pairs}
 
 
-def profile(fn, steps: int) -> dict:
+def _is_wasp_kernel(name: str) -> bool:
+    return "gemm_kernel<" in name or "gap_partial_kernel" in name or "gap_branch_kernel" in name
+
+
+def _is_heatmap_kernel(name: str) -> bool:
+    return "heatmap_mse_" in name
+
+
+def profile(fn, steps: int, ours=None) -> dict:
     """Device time by kernel over ``steps`` calls of fn (torch.profiler's
-    CUPTI trace): the top kernels, the fused WASP's share, and the share of
-    the window in which the card ran no kernel."""
+    CUPTI trace): the top kernels, the share of each of ``ours`` (name ->
+    predicate on the kernel's name), and the share of the window in which
+    the card ran no kernel."""
+    ours = ours or {"wasp_cascade": _is_wasp_kernel}
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -134,19 +170,20 @@ def profile(fn, steps: int) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels_ms = {}
     for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False):
+            continue  # a range such as Optimizer.step#Adam.step: its kernels count already
         ms = getattr(evt, "self_device_time_total", 0) / 1e3
         if ms > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels_ms[evt.key] = kernels_ms.get(evt.key, 0.0) + ms
     busy = sum(kernels_ms.values())
-    ours = sum(v for k, v in kernels_ms.items()
-               if "gemm_kernel<" in k or "gap_partial_kernel" in k or "gap_branch_kernel" in k)
     top = sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:10]
     return {
         "steps": steps,
         "wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy / steps,
         "idle_share": (1 - busy / wall_ms) if wall_ms > 0 else None,
-        "wasp_cascade_ms_per_step": ours / steps,
+        **{f"{name}_ms_per_step": sum(v for k, v in kernels_ms.items() if match(k)) / steps
+           for name, match in ours.items()},
         "kernels": len(kernels_ms),
         "top": [[k[:90], v / steps] for k, v in top],
     }
@@ -296,6 +333,196 @@ def phase_model(dev, gpu: str, flush: torch.Tensor) -> None:
             raise AssertionError("bf16 forward is not finite or skipped the kernel")
 
 
+def heatmap_bound(b: int, k: int, dtype: torch.dtype, backward: bool) -> dict:
+    """Least time for heatmap_mse on these inputs: pred read once (and
+    dpred written once in the backward), the keypoints, the scalar; about
+    10 f32 operations a joint and 3 a channel per pixel, against 67 TFLOP/s
+    (no tensor cores).  Bytes bound it by far."""
+    pixels, e = b * 46 * 46, torch.finfo(dtype).bits // 8
+    pred = pixels * (k + 1) * e
+    nbytes = pred * (2 if backward else 1) + b * k * 2 * 4 + 4
+    flops = pixels * (10 * k + 3 * (k + 1))
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
+    return {
+        "mbytes": nbytes / 1e6,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+
+
+def phase_heatmap_kernel(dev, gpu: str, flush: torch.Tensor) -> dict:
+    """heatmap_mse's forward and backward kernels against their plain
+    versions on the card, with keypoints off the grid, negative and
+    fractional (tests/test_pallas_loss.py:38-46); two calls must give the
+    same bits.  Returns the main case's rows, forward and backward."""
+    rng = np.random.RandomState(13)
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, k, sigma in HM_CASES:
+            pred = torch.from_numpy(rng.randn(b, 46, 46, k + 1).astype(np.float32)).to(dev, dtype)
+            kp = rng.uniform(-40.0, 408.0, (b, k, 2)).astype(np.float32)
+            kp[0, :3] = ((-20.0, 10.0), (9000.0, 9000.0), (100.3, 200.9))
+            kpts = torch.from_numpy(kp).to(dev)
+            g = torch.tensor(0.75, device=dev)
+            loss = hm.heatmap_mse(pred, kpts, 8, sigma)
+            dpred = hm.heatmap_mse_backward(pred, kpts, g, 8, sigma)
+            same = bool(torch.equal(loss, hm.heatmap_mse(pred, kpts, 8, sigma))
+                        and torch.equal(dpred, hm.heatmap_mse_backward(pred, kpts, g, 8, sigma)))
+            torch.cuda.synchronize()
+            want = hm.heatmap_mse_reference(pred, kpts, 8, sigma)
+            want_d = hm.heatmap_mse_backward_reference(pred, kpts, g, 8, sigma)
+            rows = {
+                "heatmap_mse": {
+                    "max_abs_err": abs(loss.item() - want.item()),
+                    "rel_err": abs(loss.item() - want.item()) / abs(want.item()),
+                    "ms": time_ms(lambda: hm.heatmap_mse(pred, kpts, 8, sigma), 20, flush),
+                    "plain_ms": time_ms(lambda: hm.heatmap_mse_reference(pred, kpts, 8, sigma), 20, flush),
+                    **heatmap_bound(b, k, dtype, backward=False),
+                },
+                "heatmap_mse_backward": {
+                    "max_abs_err": float((dpred.double() - want_d.double()).abs().max()),
+                    "rel_err": max_rel_err(dpred, want_d),
+                    "ms": time_ms(lambda: hm.heatmap_mse_backward(pred, kpts, g, 8, sigma), 20, flush),
+                    "plain_ms": time_ms(
+                        lambda: hm.heatmap_mse_backward_reference(pred, kpts, g, 8, sigma), 20, flush),
+                    **heatmap_bound(b, k, dtype, backward=True),
+                },
+            }
+            tols = {"heatmap_mse": LOSS_TOL, "heatmap_mse_backward": DPRED_TOL[dtype]}
+            for name, row in rows.items():
+                row.update({"phase": "kernel", "name": name, "dtype": str(dtype),
+                            "shape": [b, 46, 46, k + 1], "sigma": sigma, "tol": tols[name],
+                            "bit_identical_twice": same, "gpu": gpu})
+                emit(row)
+                if not (row["rel_err"] < tols[name] and same):
+                    raise AssertionError(f"{name} disagrees with its plain version: {row}")
+            if (dtype, b, k, sigma) == HM_MAIN:
+                # ``ms`` spans one call between events, so it holds the
+                # wrapper's host time while the card waits; the profiler
+                # gives the kernels' own device time per call
+                calls = {"heatmap_mse": lambda: hm.heatmap_mse(pred, kpts, 8, sigma),
+                         "heatmap_mse_backward": lambda: hm.heatmap_mse_backward(pred, kpts, g, 8, sigma)}
+                for name, fn in calls.items():
+                    prof = profile(fn, 20, {"kernel": _is_heatmap_kernel})
+                    rows[name]["device_ms"] = prof["kernel_ms_per_step"]
+                    emit({"phase": "kernel_device_time", "name": name, "shape": [b, 46, 46, k + 1],
+                          "device_ms_per_call": prof["kernel_ms_per_step"],
+                          "wall_ms_per_call": prof["wall_ms_per_step"], "gpu": gpu})
+                main = rows
+    return main
+
+
+def _device_batch(batch, dev) -> dict:
+    return {k: torch.from_numpy(np.asarray(batch[k])).to(dev) for k in ("image", "kpts")}
+
+
+def phase_train_step_check(dev, batch) -> None:
+    """One full-width f32 train step through the kernel (fused_loss=True)
+    against the same step, from the same weights and dropout seed, through
+    materialised targets: loss to 1e-5, every gradient to 1e-4 max-norm
+    relative; the kernel's forward and backward each launched once."""
+    torch.backends.cudnn.deterministic = True
+    state_np, runs = None, {}
+    try:
+        for fused in (True, False):
+            model, optimizer, state = create_train_state(ModelConfig(), TrainConfig(), seed=0, device=dev)
+            if state_np is None:
+                state_np = random_state_dict(model, seed=1)
+            load_numpy_state_dict(model, state_np)
+            state.generator.manual_seed(5)
+            kernels.reset_launches()
+            loss = make_train_step(model, optimizer, DATASETS["LSP"], fused_loss=fused)(state, batch)["loss"]
+            torch.cuda.synchronize()
+            runs[fused] = (loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()},
+                           kernels.launch_counts())
+            del model, optimizer, state
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lf, gf, cf), (lp, gp, cp) = runs[True], runs[False]
+    errs = {n: max_rel_err(gf[n], g) for n, g in gp.items()}
+    worst = max(errs, key=errs.get)
+    row = {"phase": "train_step_check", "dtype": "torch.float32", "batch": TRAIN_BATCH,
+           "loss_fused": lf, "loss_plain": lp, "loss_rel_err": abs(lf - lp) / abs(lp),
+           "grad_max_rel_err": errs[worst], "worst_tensor": worst, "tensors": len(errs),
+           "launches_fused": cf, "launches_plain": cp}
+    emit(row)
+    if not (row["loss_rel_err"] < 1e-5 and errs[worst] < 1e-4
+            and cf["heatmap_mse"] == 1 and cf["heatmap_mse_backward"] == 1
+            and cp["heatmap_mse"] == 0 and cp["heatmap_mse_backward"] == 0):
+        raise AssertionError(f"the train step through the kernel disagrees with the plain loss: {row}")
+
+
+def _seeded_trainer(dtype: torch.dtype, loaders) -> Trainer:
+    """Full width, seeded weights with randomised BN statistics."""
+    trainer = Trainer(ModelConfig(compute_dtype=dtype), TrainConfig(model_name=""),
+                      loaders=loaders, log_every=4)
+    load_numpy_state_dict(trainer.model, random_state_dict(trainer.model, seed=1))
+    return trainer
+
+
+def phase_learning(dev, loaders) -> None:
+    """Learning sanity: a freshly built bf16 Trainer takes ten steps on one
+    fixed batch from its seeded weights; the last loss must be below the
+    first (a wrong-sign or wrong-scale gradient fails this)."""
+    trainer = _seeded_trainer(torch.bfloat16, loaders)
+    batch = _device_batch(next(iter(loaders[0])), dev)
+    losses = [trainer.train_step(trainer.state, batch)["loss"] for _ in range(10)]
+    losses = [v.item() for v in losses]
+    emit({"phase": "learning", "dtype": "torch.bfloat16", "batch": TRAIN_BATCH,
+          "start": "fresh seeded weights", "one_batch_losses": losses})
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"ten steps on one batch did not lower the loss: {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_train(dev, gpu: str, loaders, dtype: torch.dtype) -> dict:
+    """The training path: a Trainer (full width, 368x368, batch 8, seeded
+    weights with randomised BN statistics) takes one epoch and validates,
+    with the launch counts set to 0 just before and read just after; then
+    step times, peak memory and a profiler window.  Returns the launch
+    counts of the path."""
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _seeded_trainer(dtype, loaders)
+    steps_per_epoch = len(loaders[0])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    epoch_loss = trainer.training(0)
+    mAP = trainer.validation(0)
+    trainer.finalize()
+    path_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    batch = _device_batch(next(iter(loaders[0])), dev)
+
+    def train_step():
+        return trainer.train_step(trainer.state, batch)
+
+    for _ in range(2):
+        train_step()
+    torch.cuda.synchronize()
+    times = [call_ms(train_step) for _ in range(TRAIN_TIMED_STEPS)]
+    q = statistics.quantiles(times, n=4)
+    step_ms = statistics.median(times)
+    prof = profile(train_step, 3, {"heatmap_mse": _is_heatmap_kernel, "wasp_cascade": _is_wasp_kernel})
+    row = {"phase": "train", "dtype": str(dtype), "batch": TRAIN_BATCH, "input": 368,
+           "steps": steps_per_epoch, "epoch_loss": epoch_loss, "mAP": mAP, "path_s": path_s,
+           "launches": counts, "step_ms_median": step_ms, "step_ms_p25": q[0], "step_ms_p75": q[2],
+           "images_per_s": TRAIN_BATCH / step_ms * 1e3, "peak_mem_gb": peak / 2**30,
+           "tf32": torch.backends.cudnn.allow_tf32, "gpu": gpu, "profile": prof}
+    emit(row)
+    ok = (np.isfinite(epoch_loss) and 0.0 <= mAP <= 1.0
+          and counts["heatmap_mse"] == steps_per_epoch
+          and counts["heatmap_mse_backward"] == steps_per_epoch
+          and counts["wasp_cascade"] > 0)
+    if not ok:
+        raise AssertionError(f"the training path failed its checks: {row}")
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _concurrent_requests(service, images) -> list:
     """One client thread a request through the request function below the
     decode; returns each request's reply with its wall time."""
@@ -345,7 +572,7 @@ def phase_serve(gpu: str) -> dict:
         server.shutdown()
         server.server_close()
         thread.join(30)
-    counts = kernels.launch_counts()
+    counts = {"wasp_cascade": wc.wasp_cascade.launches}
     emit({"phase": "serve", "healthz": health, "requests": sum(map(len, rounds.values())),
           **{f"{name}_latency_ms": sorted(r["wall_ms"] for r in rs) for name, rs in rounds.items()},
           **{f"{name}_model_ms": sorted(r["ms"] for r in rs) for name, rs in rounds.items()},
@@ -367,14 +594,23 @@ def main() -> int:
     phase_build()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     main_case = phase_kernel(dev, gpu, flush)
+    hm_main = phase_heatmap_kernel(dev, gpu, flush)
     phase_model(dev, gpu, flush)
-    counts = phase_serve(gpu)
-    emit({"kernels": [{
+    serve_counts = phase_serve(gpu)
+    loaders = make_loaders("image", input_size=368, train_samples=64, val_samples=16,
+                           batch_size=TRAIN_BATCH)
+    phase_train_step_check(dev, _device_batch(next(iter(loaders[0])), dev))
+    train_counts = {str(dt): phase_train(dev, gpu, loaders, dt) for dt in (torch.float32, torch.bfloat16)}
+    phase_learning(dev, loaders)
+    main_train = train_counts["torch.float32"]  # the Trainer's default: f32
+    entries = [{
         "name": "wasp_cascade",
         "route": "cuda",
         "source": "unipose_tpu_torch/csrc/wasp_cascade.cu",
         "replaces": "unipose_tpu/ops/pallas/wasp_cascade.py:167",
-        "launches": counts["wasp_cascade"],
+        "launches": serve_counts["wasp_cascade"],
+        "launches_by_path": {"serve": serve_counts["wasp_cascade"],
+                             **{f"train {k}": v["wasp_cascade"] for k, v in train_counts.items()}},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -382,7 +618,27 @@ def main() -> int:
         "bound_by": main_case["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the fused WASP
         "shape": f"{main_case['dtype']} {main_case['shape']}",
-    }]})
+    }]
+    replaces = {"heatmap_mse": "unipose_tpu/ops/pallas/heatmap_loss.py:86 (forward pallas_call :70)",
+                "heatmap_mse_backward": "unipose_tpu/ops/pallas/heatmap_loss.py:86 (backward _bwd :106, pallas_call :111)"}
+    for name, row in hm_main.items():
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "unipose_tpu_torch/csrc/heatmap_mse.cu",
+            "replaces": replaces[name],
+            "launches": main_train[name],
+            "launches_by_path": {f"train {k}": v[name] for k, v in train_counts.items()},
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,  # no single PyTorch call builds the targets and the loss
+            "device_ms": row["device_ms"],
+            "shape": f"{row['dtype']} {row['shape']}",
+        })
+    emit({"kernels": entries})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

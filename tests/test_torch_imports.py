@@ -74,8 +74,11 @@ def test_no_source_names_jax(path):
 def test_entry_points_raise_without_a_card(monkeypatch):
     from unipose_tpu_torch import resolve_device
     from unipose_tpu_torch.cli import serve
-    from unipose_tpu_torch.core.config import ModelConfig
+    from unipose_tpu_torch.core.config import ModelConfig, TrainConfig
+    from unipose_tpu_torch.data.synthetic import make_loaders
     from unipose_tpu_torch.models.unipose import init_model
+    from unipose_tpu_torch.train.state import create_train_state
+    from unipose_tpu_torch.train.trainer import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -84,4 +87,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         init_model(ModelConfig(), seed=0, layers=(1, 1, 1, 1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.make_server(serve.parse_args(["--port", "0"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(ModelConfig(), TrainConfig(), seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(ModelConfig(), TrainConfig(), loaders=make_loaders("image", train_samples=1, val_samples=1))
     assert resolve_device("cpu") == torch.device("cpu")

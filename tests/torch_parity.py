@@ -62,16 +62,21 @@ class ComposedUniPose(nn.Module):
     output_stride: int = 16
     stride: int = 8
     bbox_head: bool = False
+    freeze_bn: bool = False
 
     @nn.compact
     def __call__(self, x, *, train: bool = False):
         feats, low = ResNet101(
-            output_stride=self.output_stride, layers=self.layers, name="backbone"
+            output_stride=self.output_stride, layers=self.layers,
+            freeze_bn=self.freeze_bn, name="backbone",
         )(x, train=train)
-        y = WASP(output_stride=self.output_stride, name="wasp")(feats, train=train)
-        y = Decoder(self.num_classes, bbox_head=self.bbox_head, name="decoder")(
-            y, low, train=train
+        y = WASP(output_stride=self.output_stride, freeze_bn=self.freeze_bn, name="wasp")(
+            feats, train=train
         )
+        y = Decoder(
+            self.num_classes, bbox_head=self.bbox_head, freeze_bn=self.freeze_bn,
+            name="decoder",
+        )(y, low, train=train)
         if self.stride != 8:
             y = bilinear_resize(y, x.shape[1:3])
         y = y.astype(jnp.float32)

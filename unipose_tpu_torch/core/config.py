@@ -1,15 +1,17 @@
-"""Configuration layer: dataset specs and the image model config.
+"""Configuration layer: dataset specs, the image model config and the
+image training recipe.
 
 Counterpart of ``unipose_tpu/core/config.py``.  The dataset specs are copied
 as they are; ``ModelConfig`` holds the image model's fields, with
-``compute_dtype`` a ``torch.dtype``.  The training, video and parallelism
-fields arrive with the slices that use them.
+``compute_dtype`` a ``torch.dtype``; ``TrainConfig`` holds the image
+training fields.  The video, parallelism and checkpoint-manager fields
+arrive with the slices that use them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -155,3 +157,44 @@ class ModelConfig:
     # Replicate the reference's double application of wasp.conv2
     # (Reference: model/modules/wasp.py:72-80) for pretrained-weight parity.
     wasp_double_conv2: bool = True
+    # Fine-tune with BN frozen to its running statistics: in train mode every
+    # BatchNorm normalises with (and does not update) its running stats; its
+    # affine parameters still train (Reference: model/unipose.py:24-25,40-45).
+    freeze_bn: bool = False
+
+
+# ---------------------------------------------------------------------------
+# Train config
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Image training recipe (Reference: unipose.py:46-56).  The batch
+    size is the loaders' (``make_loaders(batch_size=)``); the epoch count
+    and validation batch arrive with ``cli/train.py``, which reads them."""
+
+    lr: float = 1e-4
+    gamma: float = 0.333
+    step_size: int = 13275
+    # Target-rendering overrides; None means the dataset spec's value (see
+    # ``effective_spec``).
+    sigma: Optional[float] = None
+    stride: Optional[int] = None
+    seed: int = 0
+    # Linear LR warmup over the first N updates (0 = off, the reference).
+    warmup_steps: int = 0
+    # ``<model_name>_best`` is the best-mAP checkpoint; "" writes none.
+    model_name: str = "unipose"
+
+
+def effective_spec(spec: DatasetSpec, train: TrainConfig) -> DatasetSpec:
+    """The dataset spec with ``TrainConfig.sigma``/``stride`` applied when
+    set: the one source of truth for target rendering, read by the loaders
+    and the steps (never ``TrainConfig.sigma``/``stride`` directly)."""
+    overrides = {}
+    if train.sigma is not None:
+        overrides["sigma"] = float(train.sigma)
+    if train.stride is not None:
+        overrides["stride"] = int(train.stride)
+    return dataclasses.replace(spec, **overrides) if overrides else spec

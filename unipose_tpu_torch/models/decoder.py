@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from unipose_tpu_torch.models.layers import batch_norm, conv
+from unipose_tpu_torch.models.layers import Dropout, batch_norm, conv
 from unipose_tpu_torch.ops.pooling import max_pool2d
 from unipose_tpu_torch.ops.resize import bilinear_resize
 
@@ -36,11 +36,11 @@ class Decoder(nn.Module):
             conv(304, 256, 3, padding=1),
             batch_norm(256),
             nn.ReLU(),
-            nn.Dropout(0.5),
+            Dropout(0.5),
             conv(256, 256, 3, padding=1),
             batch_norm(256),
             nn.ReLU(),
-            nn.Dropout(0.1),
+            Dropout(0.1),
             conv(256, out_ch, 1, bias=True),
         )
 

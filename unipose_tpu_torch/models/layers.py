@@ -22,7 +22,11 @@ class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that runs in its input's dtype.
 
     With autograd off, the cast weight is kept and rebuilt only when the
-    weight changes (its version counter or storage) or the dtype does.
+    weight changes (its version counter or storage) or the dtype does.  The
+    port's optimizer (``train/optim.py``, ``torch.optim.Adam`` in its
+    for-loop or foreach form) moves the version counters of the weights it
+    updates; ``Adam(fused=True)`` does not, so a step through it would leave
+    this cache stale.
     """
 
     _cast = None
@@ -63,6 +67,40 @@ def conv(
 def batch_norm(channels: int) -> nn.BatchNorm2d:
     """Torch-semantics BatchNorm: eps 1e-5, momentum 0.1."""
     return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose masks come from an explicit generator.
+
+    The JAX step draws its masks from a key per (seed, step)
+    (train/steps.py:53-66); here the train state owns a ``torch.Generator``
+    on the model's device and hands it to every ``Dropout`` through
+    :func:`use_dropout_generator`, so a run's masks follow from its seed and
+    not from the global RNG (which a module without a generator uses).
+    Holds no parameters: the ``state_dict`` keys do not change.
+    """
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        return x * mask / keep
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def use_dropout_generator(module: nn.Module, generator) -> None:
+    """Make every ``Dropout`` under ``module`` draw from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 @torch.no_grad()

@@ -4,7 +4,10 @@ Counterpart of ``unipose_tpu/models/unipose.py`` (Reference: model/unipose.py):
   * composition :20-22, forward :27-38;
   * output resized to the input size (align corners) only when stride != 8
     (:31-32);
-  * heatmaps are NCHW here, and f32 whatever the compute dtype.
+  * heatmaps are NCHW here, and f32 whatever the compute dtype;
+  * ``freeze_bn``: train mode keeps every BatchNorm in eval mode (running
+    statistics used, not updated; affine parameters still train), the
+    JAX package's ``use_running_average=(not train) or freeze_bn``.
 """
 
 from __future__ import annotations
@@ -36,15 +39,25 @@ class UniPose(nn.Module):
         bbox_head: bool = False,
         compute_dtype: torch.dtype = torch.float32,
         layers: Tuple[int, int, int, int] = FULL_DEPTH,
+        freeze_bn: bool = False,
     ):
         super().__init__()
         self.num_classes = num_classes
+        self.freeze_bn = freeze_bn
         self.stride = stride
         self.bbox_head = bbox_head
         self.compute_dtype = compute_dtype
         self.backbone = ResNet101(output_stride=output_stride, layers=layers)
         self.wasp = WASP(output_stride=output_stride, double_conv2=wasp_double_conv2)
         self.decoder = Decoder(num_classes, bbox_head=bbox_head)
+
+    def train(self, mode: bool = True) -> "UniPose":
+        super().train(mode)
+        if mode and self.freeze_bn:
+            for m in self.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.eval()
+        return self
 
     def forward(self, x: torch.Tensor):
         """(B, 3, H, W) normalised images -> (B, K+1, H/8, W/8) f32 heatmaps
@@ -75,6 +88,7 @@ def build_model(
         wasp_double_conv2=config.wasp_double_conv2,
         compute_dtype=config.compute_dtype,
         layers=layers,
+        freeze_bn=config.freeze_bn,
     )
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from unipose_tpu_torch.models.layers import batch_norm, conv
+from unipose_tpu_torch.models.layers import Dropout, batch_norm, conv
 from unipose_tpu_torch.ops.kernels.wasp_cascade import (
     cast_folded,
     fold_wasp_params,
@@ -77,12 +77,13 @@ class WASP(nn.Module):
         self.conv2 = conv(256, 256, 1)
         self.conv1 = conv(1280, 256, 1)
         self.bn1 = batch_norm(256)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self._folded = None
 
     def _folded_weights(self, dtype: torch.dtype):
-        """Folded weights in ``dtype``, rebuilt when any weight or BN
-        statistic changes (version counter or storage) or the dtype does."""
+        """Folded weights in ``dtype``, rebuilt only when any weight or BN
+        statistic changes (version counter or storage; see ``Conv2d``) or
+        the dtype does."""
         key = (dtype,) + tuple(
             (t.data_ptr(), t._version)
             for t in (*self.parameters(), *self.buffers())

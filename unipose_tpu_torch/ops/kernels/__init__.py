@@ -8,9 +8,10 @@ from typing import Dict
 
 
 def wrappers():
+    from unipose_tpu_torch.ops.kernels.heatmap_mse import heatmap_mse, heatmap_mse_backward
     from unipose_tpu_torch.ops.kernels.wasp_cascade import wasp_cascade
 
-    return (wasp_cascade,)
+    return (wasp_cascade, heatmap_mse, heatmap_mse_backward)
 
 
 def reset_launches() -> None:

@@ -1,0 +1,185 @@
+"""Training harness, image path: init, training, validation.
+
+Counterpart of ``unipose_tpu/train/trainer.py`` (Reference: unipose.py:
+37-193):
+  * per-update step-decay LR (the scheduler in the train state);
+  * per-epoch validation with AP/PCK/PCKh accumulated with per-joint
+    visibility gating (unipose.py:163-176);
+  * best-mAP checkpoint to ``<model_name>_best`` (unipose.py:183-186);
+  * optional warm start from a reference ``*.pth.tar`` (unipose.py:78-90).
+
+One deliberate difference: the train step runs the fused loss
+(``heatmap_mse``, the same function as the materialised MSE, whose targets
+never exist in memory), where the JAX ``Trainer`` builds its step without it.
+Real dataset loaders arrive with the data slice: pass ``loaders``, for
+example ``data/synthetic.py::make_loaders``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from unipose_tpu_torch.core.config import DATASETS, ModelConfig, TrainConfig, effective_spec
+from unipose_tpu_torch.eval.metrics import accuracy_from_coords
+from unipose_tpu_torch.eval.report import print_accuracies
+from unipose_tpu_torch.train.checkpoint import save_checkpoint, warm_start_from_torch
+from unipose_tpu_torch.train.state import create_train_state
+from unipose_tpu_torch.train.steps import make_train_step, make_val_step
+
+_KEEP = ("image", "kpts")
+
+
+class Trainer:
+    def __init__(
+        self,
+        model_config: ModelConfig,
+        train_config: TrainConfig,
+        *,
+        pretrained: Optional[str] = None,
+        log_every: int = 50,
+        spec=None,
+        loaders=None,
+        device=None,
+    ):
+        """``loaders``: (train, val[, test]) with the loader protocol
+        (``__len__``, ``set_epoch``, ``__iter__`` of numpy batches,
+        ``batch_size``).  Runs on the card unless ``device="cpu"``."""
+        self.model_config = model_config
+        self.train_config = train_config
+        self.spec = effective_spec(spec or DATASETS[model_config.dataset], train_config)
+        if self.spec.is_video:
+            raise NotImplementedError(f"{self.spec.name} is a video dataset: the video slice")
+        if loaders is None:
+            raise NotImplementedError(
+                "the dataset loaders arrive with the data slice; pass loaders="
+                "unipose_tpu_torch.data.synthetic.make_loaders(...)"
+            )
+        self.train_loader, self.val_loader = loaders[0], loaders[1]
+        self.log_every = log_every
+
+        self.model, self.optimizer, self.state = create_train_state(
+            model_config, train_config, train_config.seed, device
+        )
+        self.device = next(self.model.parameters()).device
+        if pretrained:
+            warm_start_from_torch(self.state, pretrained)
+        self.train_step = make_train_step(self.model, self.optimizer, self.spec, fused_loss=True)
+        self.val_step = make_val_step(self.model, self.spec)
+
+        self.is_best = 0.0
+        self.best_pck = 0.0
+        self.best_pckh = 0.0
+        self.model_name = train_config.model_name
+
+    # ------------------------------------------------------------------
+    def _device_batch(self, batch):
+        return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device) for k in _KEEP}
+
+    def training(self, epoch: int) -> float:
+        print(f"Epoch {epoch}:")
+        # Losses stay on the device between log points: reading one every
+        # step would stall the host on the card at each update.
+        pending = []
+        train_loss = 0.0
+        n = 0
+        t0 = time.time()
+        self.train_loader.set_epoch(epoch)
+        for i, batch in enumerate(self.train_loader):
+            metrics = self.train_step(self.state, self._device_batch(batch))
+            pending.append(metrics["loss"])
+            n += 1
+            if (i + 1) % self.log_every == 0:
+                train_loss += torch.stack(pending).sum().item()  # one sync
+                pending = []
+                rate = n / (time.time() - t0)
+                print(
+                    f"  iter {i + 1}/{len(self.train_loader)} "
+                    f"loss {train_loss / n:.6f} ({rate:.2f} it/s)"
+                )
+        if pending:
+            train_loss += torch.stack(pending).sum().item()
+        return train_loss / max(n, 1)
+
+    def finalize(self) -> None:
+        """Wait for the work queued on the device (call before exit)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    def _device_batch_padded(self, batch, pad_to):
+        """Pad a ragged last batch to ``pad_to`` by repeating its last
+        sample.  Returns (device batch, real samples, resolved pad size)."""
+        sub = {k: np.asarray(batch[k]) for k in _KEEP}
+        n = sub["image"].shape[0]
+        if pad_to is None:
+            pad_to = n
+        if n < pad_to:
+            sub = {k: np.concatenate([v, np.repeat(v[-1:], pad_to - n, axis=0)]) for k, v in sub.items()}
+        return self._device_batch(sub), n, pad_to
+
+    def validation(self, epoch: int) -> float:
+        """Validation (reference behaviour: unipose.py:133-193) with the
+        argmax of predictions and targets on the device and one fetch of
+        all coordinates at the end; metrics per frame, running means gated
+        per joint by visibility (unipose.py:163-176).  Returns the mAP."""
+        k = self.model_config.num_classes
+        AP = np.zeros(k + 1)
+        PCK = np.zeros(k + 1)
+        PCKh = np.zeros(k + 1)
+        count = np.zeros(k + 1)
+
+        pending = []  # (pred coords, target coords, loss) on the device
+        valids = []
+        pad_to = getattr(self.val_loader, "batch_size", None)
+        for batch in self.val_loader:
+            db, n_valid, pad_to = self._device_batch_padded(batch, pad_to)
+            pending.append(self.val_step(db))
+            valids.append(n_valid)
+        if not pending:
+            return 0.0
+
+        preds = torch.cat([p for p, _, _ in pending]).cpu().numpy()
+        tgts = torch.cat([t for _, t, _ in pending]).cpu().numpy()
+
+        hm = self.spec.heatmap_size
+        frames = []  # (pred (K+1, 2), target (K+1, 2)) in dataset order
+        for bi, n_valid in enumerate(valids):
+            for s in range(n_valid):
+                i = bi * pad_to + s
+                frames.append((preds[i], tgts[i]))
+
+        for frame_idx, (p, t) in enumerate(frames):
+            acc, acc_pck, acc_pckh, _, _, visible = accuracy_from_coords(
+                p[None], t[None], hm, hm, 0.2, 0.5, self.model_config.dataset
+            )
+            AP[0] = (AP[0] * frame_idx + acc[0]) / (frame_idx + 1)
+            PCK[0] = (PCK[0] * frame_idx + acc_pck[0]) / (frame_idx + 1)
+            PCKh[0] = (PCKh[0] * frame_idx + acc_pckh[0]) / (frame_idx + 1)
+            for j in range(1, k + 1):
+                if visible[j] == 1:
+                    AP[j] = (AP[j] * count[j] + acc[j]) / (count[j] + 1)
+                    PCK[j] = (PCK[j] * count[j] + acc_pck[j]) / (count[j] + 1)
+                    PCKh[j] = (PCKh[j] * count[j] + acc_pckh[j]) / (count[j] + 1)
+                    count[j] += 1
+
+        mAP = AP[1:].sum() / k
+        mPCK = PCK[1:].sum() / k
+        mPCKh = PCKh[1:].sum() / k
+        print_accuracies(mAP, AP, mPCKh, PCKh, mPCK, PCK, self.model_config.dataset)
+
+        if mAP > self.is_best:
+            self.is_best = mAP
+            if self.model_name:
+                save_checkpoint(self.state, True, self.model_name)
+                print(f"Model saved to {self.model_name}")
+        self.best_pckh = max(self.best_pckh, mPCKh)
+        self.best_pck = max(self.best_pck, mPCK)
+        print(
+            "Best AP = %.2f%%; PCK = %2.2f%%; PCKh = %2.2f%%"
+            % (self.is_best * 100, self.best_pck * 100, self.best_pckh * 100)
+        )
+        return mAP
