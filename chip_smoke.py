@@ -6,13 +6,17 @@
 Builds every CUDA kernel from csrc/ (one nvcc a source, in parallel), holds
 each kernel against its plain PyTorch version at the model's shapes, runs
 the full-width UniPose (ResNet-101 OS16, LSP 14 joints, 368x368) in f32
-against its plain-WASP twin and the committed JAX golden heatmaps, then
-drives the two main paths and shows through the kernels' launch counts
-that each ran through its kernels: the image server, built in-process,
-answering concurrent requests (``wasp_cascade``), and the Trainer taking an
-epoch of steps and validating (``heatmap_mse`` forward and backward, and
-``wasp_cascade`` in validation); then a fresh Trainer takes ten steps on one
-batch, which must lower the loss.  Prints one JSON object a phase, a
+against its plain-stem, plain-WASP twin and the committed JAX golden
+heatmaps, then drives the main paths and shows through the kernels' launch
+counts that each ran through its kernels: the image server, built
+in-process, answering concurrent requests (``fused_stem``,
+``wasp_cascade``); the Trainer taking an epoch of steps and validating
+(``heatmap_mse`` forward and backward, and the two eval kernels in
+validation); a fresh Trainer taking ten steps on one batch, which must
+lower the loss; the full-width UniPose-LSTM (Penn Action 13 joints,
+5-frame chunks) against its plain twin and the committed JAX golden
+stream, streaming a 20-frame video; and the video server answering
+concurrent clips and streams.  Prints one JSON object a phase, a
 ``kernels`` line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA card or any phase fails.
@@ -20,6 +24,8 @@ when there is no CUDA card or any phase fails.
 
 from __future__ import annotations
 
+import base64
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -35,6 +41,7 @@ import torch
 from unipose_tpu_torch.cli import serve
 from unipose_tpu_torch.core.config import DATASETS, ModelConfig, TrainConfig
 from unipose_tpu_torch.data.synthetic import make_loaders
+from unipose_tpu_torch.eval.video import make_stream_step, stream_video, stream_video_scan
 from unipose_tpu_torch.models.unipose import (
     build_model,
     init_model,
@@ -42,7 +49,9 @@ from unipose_tpu_torch.models.unipose import (
     random_state_dict,
 )
 from unipose_tpu_torch.ops import kernels
+from unipose_tpu_torch.models.resnet import ResNet101
 from unipose_tpu_torch.ops.kernels import build
+from unipose_tpu_torch.ops.kernels import fused_stem as fs
 from unipose_tpu_torch.ops.kernels import heatmap_mse as hm
 from unipose_tpu_torch.ops.kernels import wasp_cascade as wc
 from unipose_tpu_torch.train.state import create_train_state
@@ -51,6 +60,7 @@ from unipose_tpu_torch.train.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "golden_heatmaps_reduced_368.npz"
+GOLDEN_VIDEO = ROOT / "tests" / "data" / "golden_video_stream_reduced_128.npz"
 
 # H100 SXM data sheet (dense): the bound of every kernel is taken against these.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # f32: no tensor cores
@@ -79,6 +89,15 @@ LOSS_TOL = 1e-5
 DPRED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 TRAIN_BATCH = 8  # the reference's batch (cli/train.py:121)
 TRAIN_TIMED_STEPS = 10
+
+# fused_stem: (batch, H, W); 368x368 at batch 1 (a request), 5 (a video
+# chunk) and 32, a 128x128 input and an odd size.  Tolerances as TOL: f32
+# sums in another order; bf16 one rounding at the output that may flip.
+STEM_CASES = ((1, 368, 368), (5, 368, 368), (32, 368, 368), (4, 128, 128), (2, 367, 301))
+STEM_MAIN = (torch.bfloat16, 1, 368, 368)  # the image request's stem
+VIDEO = dict(dataset="Penn_Action", num_classes=13, variant="lstm")  # BASELINE config 3
+VIDEO_FRAMES = 20
+CHUNK = 5
 
 
 def emit(obj) -> None:
@@ -152,12 +171,19 @@ def _is_heatmap_kernel(name: str) -> bool:
     return "heatmap_mse_" in name
 
 
+def _is_stem_kernel(name: str) -> bool:
+    return "fused_stem_kernel" in name
+
+
+OURS = {"wasp_cascade": _is_wasp_kernel, "fused_stem": _is_stem_kernel}
+
+
 def profile(fn, steps: int, ours=None) -> dict:
     """Device time by kernel over ``steps`` calls of fn (torch.profiler's
     CUPTI trace): the top kernels, the share of each of ``ours`` (name ->
     predicate on the kernel's name), and the share of the window in which
     the card ran no kernel."""
-    ours = ours or {"wasp_cascade": _is_wasp_kernel}
+    ours = ours or OURS
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -262,9 +288,94 @@ def phase_kernel(dev, gpu: str, flush: torch.Tensor) -> dict:
     return main
 
 
+def stem_bound(b: int, h: int, w: int, dtype: torch.dtype, products: int) -> dict:
+    """Least time for the fused stem on these inputs: the image read once,
+    the pooled output written once, the weights; ``products`` multiply-adds
+    a conv output (147 for 7x7 weights, whose zero taps need none)."""
+    e = torch.finfo(dtype).bits // 8
+    hc, wc = (h + 1) // 2, (w + 1) // 2
+    flops = 2 * b * hc * wc * 64 * products
+    nbytes = b * h * w * 3 * e + b * ((hc + 1) // 2) * ((wc + 1) // 2) * 64 * e + 192 * 64 * e + 2 * 64 * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return {
+        "gflop": flops / 1e9,
+        "mbytes": nbytes / 1e6,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+
+
+def phase_stem_kernel(dev, gpu: str, flush: torch.Tensor) -> dict:
+    """fused_stem against fused_stem_reference on the card, on the stem
+    weights of a seeded ResNet-101 (7x7 conv1, BN randomised), with the
+    unfused stem (cuDNN conv, BatchNorm2d, ReLU, max_pool2d: the modules
+    that train mode runs) timed beside it.  Two calls must give the same
+    bits.  Returns the main case's row."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net = ResNet101(layers=(1, 1, 1, 1))
+    load_numpy_state_dict(net, random_state_dict(net, seed=21))
+    net = net.to(dev, memory_format=torch.channels_last).eval()
+    folded32 = fs.fold_stem_params(net)
+    w8 = folded32["w4"].reshape(4, 4, 2, 2, 3, 64).permute(0, 2, 1, 3, 4, 5).reshape(8, 8, 3, 64)
+    products = 147 if not (w8[0].any() or w8[:, 0].any()) else 192
+    gen = torch.Generator(device=dev).manual_seed(22)
+    main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        folded = fs.cast_folded(folded32, dtype)
+        for b, h, w in STEM_CASES:
+            x = (torch.rand(b, h, w, 3, generator=gen, device=dev) - 0.5).to(dtype)
+            got = fs.fused_stem(x, folded)
+            same = bool(torch.equal(got, fs.fused_stem(x, folded)))
+            torch.cuda.synchronize()
+            want = fs.fused_stem_reference(x, folded)
+            err = max_rel_err(got, want)
+            x_nchw = x.permute(0, 3, 1, 2)  # channels-last NCHW view, as the model holds it
+
+            def unfused():
+                with torch.no_grad():
+                    return net.stem_modules(x_nchw)
+
+            row = {
+                "phase": "kernel", "name": "fused_stem", "dtype": str(dtype), "shape": [b, h, w, 3],
+                "max_abs_err": float((got.double() - want.double()).abs().max()),
+                "max_rel_err": err, "tol": TOL[dtype], "bit_identical_twice": same,
+                "unfused_max_rel_err": max_rel_err(unfused().permute(0, 2, 3, 1), want),
+                "ms": time_ms(lambda: fs.fused_stem(x, folded), 10, flush),
+                "plain_ms": time_ms(lambda: fs.fused_stem_reference(x, folded), 5, flush),
+                "unfused_ms": time_ms(unfused, 10, flush),
+                "library_ms": None,  # no single PyTorch call computes the fused stem
+                "products": products,
+                **stem_bound(b, h, w, dtype, products),
+                "gpu": gpu,
+            }
+            emit(row)
+            if not (err < TOL[dtype] and same):
+                raise AssertionError(f"fused_stem disagrees with its plain version: {row}")
+            if (dtype, b, h, w) == STEM_MAIN:
+                main = row
+    return main
+
+
+def _plain_twin(model):
+    """Set the model's eval-mode stem and WASP to their plain versions."""
+    model.backbone.stem = fs.fused_stem_reference
+    model.wasp.cascade = wc.wasp_cascade_reference
+
+
+def _kernel_twin(model):
+    del model.backbone.stem, model.wasp.cascade
+
+
+def _eval_launches() -> dict:
+    return {k: v for k, v in kernels.launch_counts().items() if k in OURS}
+
+
 def phase_model(dev, gpu: str, flush: torch.Tensor) -> None:
-    """Full-width UniPose: the f32 forward through the kernel against the
-    same forward through the plain WASP, then bf16 forward times."""
+    """Full-width UniPose: the f32 forward through the kernels against the
+    same forward through the plain stem and the plain WASP, the golden
+    check, then bf16 forward times: the kernels paired in turns against the
+    plain WASP and against the unfused module stem."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = init_model(ModelConfig(), seed=0, device=dev)
@@ -273,20 +384,20 @@ def phase_model(dev, gpu: str, flush: torch.Tensor) -> None:
     img = np.random.RandomState(2).randint(0, 256, (1, 368, 368, 3)).astype(np.uint8)
     x = preprocess_images(torch.from_numpy(img).to(dev)).permute(0, 3, 1, 2)
 
-    before = wc.wasp_cascade.launches
+    kernels.reset_launches()
     with torch.no_grad():
         heat = model(x)
         torch.cuda.synchronize()
-        launched = wc.wasp_cascade.launches - before
-        model.wasp.cascade = wc.wasp_cascade_reference
+        launched = _eval_launches()
+        _plain_twin(model)
         heat_plain = model(x)
-        del model.wasp.cascade
+        _kernel_twin(model)
     err = max_rel_err(heat, heat_plain)
-    emit({"phase": "model_f32", "shape": list(heat.shape), "max_rel_err_vs_plain_wasp": err,
+    emit({"phase": "model_f32", "shape": list(heat.shape), "max_rel_err_vs_plain_stem_and_wasp": err,
           "tol": 1e-4, "kernel_launches": launched, "finite": bool(torch.isfinite(heat).all())})
-    if not (err < 1e-4 and launched == 1 and heat.shape == (1, 15, 46, 46)
-            and torch.isfinite(heat).all()):
-        raise AssertionError("f32 model through the kernel disagrees with its plain-WASP twin")
+    if not (err < 1e-4 and launched == {"wasp_cascade": 1, "fused_stem": 1}
+            and heat.shape == (1, 15, 46, 46) and torch.isfinite(heat).all()):
+        raise AssertionError("f32 model through the kernels disagrees with its plain twin")
 
     # the golden check: the card against the JAX package's heatmaps
     golden = np.load(GOLDEN)
@@ -295,42 +406,256 @@ def phase_model(dev, gpu: str, flush: torch.Tensor) -> None:
     small = small.to(dev, memory_format=torch.channels_last).eval()
     gimg = np.random.RandomState(int(golden["input_seed"])).randint(0, 256, (1, 368, 368, 3))
     gx = preprocess_images(torch.from_numpy(gimg).to(dev)).permute(0, 3, 1, 2)
-    before = wc.wasp_cascade.launches
+    kernels.reset_launches()
     with torch.no_grad():
         gheat = small(gx).permute(0, 2, 3, 1).cpu()
     gerr = max_rel_err(gheat, torch.from_numpy(golden["heatmaps"]))
-    emit({"phase": "golden", "max_rel_err_vs_jax": gerr, "tol": 1e-4,
-          "kernel_launches": wc.wasp_cascade.launches - before})
-    if not (gerr < 1e-4 and wc.wasp_cascade.launches > before):
+    launched = _eval_launches()
+    emit({"phase": "golden", "max_rel_err_vs_jax": gerr, "tol": 1e-4, "kernel_launches": launched})
+    if not (gerr < 1e-4 and min(launched.values()) > 0):
         raise AssertionError("the card's forward disagrees with the JAX golden heatmaps")
 
     bf16 = build_model(ModelConfig(compute_dtype=torch.bfloat16))
     load_numpy_state_dict(bf16, state)
     bf16 = bf16.to(dev, memory_format=torch.channels_last).eval()
+
+    def unfused_stem(x_nhwc, folded):  # the modules' stem, as slice 1 ran it in eval
+        return bf16.backbone.stem_modules(x_nhwc.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
     for b in MODEL_BATCHES:
         xb = x.expand(b, -1, -1, -1).contiguous(memory_format=torch.channels_last)
 
-        def plain_wasp_forward():
-            bf16.wasp.cascade = wc.wasp_cascade_reference
-            try:
-                return bf16(xb)
-            finally:
-                del bf16.wasp.cascade
+        def with_stage(attr, owner, fn):
+            def forward():
+                setattr(owner, attr, fn)
+                try:
+                    return bf16(xb)
+                finally:
+                    delattr(owner, attr)
+            return forward
 
         with torch.no_grad():
             out = bf16(xb)
-            before = wc.wasp_cascade.launches
-            times = paired_ms(lambda: bf16(xb), plain_wasp_forward, MODEL_PAIRS, flush)
-            launched = wc.wasp_cascade.launches - before
+            out_unfused = with_stage("stem", bf16.backbone, unfused_stem)()
+            kernels.reset_launches()
+            times = paired_ms(lambda: bf16(xb), with_stage("cascade", bf16.wasp, wc.wasp_cascade_reference),
+                              MODEL_PAIRS, flush)
+            stem_times = paired_ms(lambda: bf16(xb), with_stage("stem", bf16.backbone, unfused_stem),
+                                   MODEL_PAIRS, flush)
+            launched = _eval_launches()
             prof = profile(lambda: bf16(xb), 3)
         ms = times["a"]["median"]
         emit({"phase": "model_bf16", "batch": b, "forward_ms": ms,
               "forward_ms_plain_wasp": times["b"]["median"], "frames_per_s": b / ms * 1e3,
               "kernel_vs_plain_wasp": times,
+              "forward_ms_fused_stem": stem_times["a"]["median"],
+              "forward_ms_unfused_stem": stem_times["b"]["median"],
+              "fused_vs_unfused_stem": stem_times,
               "max_rel_err_vs_f32": max_rel_err(out[:1], heat),
+              "max_rel_err_unfused_stem_vs_f32": max_rel_err(out_unfused[:1], heat),
               "kernel_launches": launched, "gpu": gpu, "profile": prof})
-        if not (torch.isfinite(out).all() and launched > 0):
-            raise AssertionError("bf16 forward is not finite or skipped the kernel")
+        if not (torch.isfinite(out).all() and min(launched.values()) > 0):
+            raise AssertionError("bf16 forward is not finite or skipped a kernel")
+
+
+def phase_video(dev, gpu: str) -> dict:
+    """Full-width UniPose-LSTM (BASELINE config 3: ResNet-101 OS16, Penn
+    Action 13 joints, 368x368, a 5-frame chunk) in f32 through the kernels
+    against its plain-stem, plain-WASP twin; then the reduced-depth
+    two-chunk stream against the committed JAX golden heatmaps.  Returns
+    the full-width model's seeded weights."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = init_model(ModelConfig(**VIDEO), seed=0, device=dev)
+    state = random_state_dict(model, seed=1)
+    load_numpy_state_dict(model, state)
+    rng = np.random.RandomState(31)
+    frames = torch.from_numpy(rng.randint(0, 256, (1, CHUNK, 368, 368, 3)).astype(np.uint8)).to(dev)
+    centers = torch.from_numpy((rng.rand(1, CHUNK, 2) * 368).astype(np.float32)).to(dev)
+    step = make_stream_step(model, DATASETS["Penn_Action"])
+    kernels.reset_launches()
+    heat, (cell, hide) = step(frames, centers)
+    torch.cuda.synchronize()
+    launched = _eval_launches()
+    _plain_twin(model)
+    heat_plain, (cell_plain, _) = step(frames, centers)
+    _kernel_twin(model)
+    err = max_rel_err(heat, heat_plain)
+    row = {"phase": "video_f32", "shape": list(heat.shape), "max_rel_err_vs_plain_twin": err,
+           "cell_max_rel_err": max_rel_err(cell, cell_plain), "tol": 1e-4,
+           "kernel_launches": launched, "finite": bool(torch.isfinite(heat).all()),
+           "heat_max": float(heat.max())}
+    emit(row)
+    if not (err < 1e-4 and row["cell_max_rel_err"] < 1e-4 and launched == {"wasp_cascade": 1, "fused_stem": 1}
+            and heat.shape == (1, CHUNK, 46, 46, 14) and row["finite"]):
+        raise AssertionError(f"the f32 video clip through the kernels disagrees with its plain twin: {row}")
+    del model
+    torch.cuda.empty_cache()
+
+    golden = np.load(GOLDEN_VIDEO)
+    size, t = int(golden["size"]), int(golden["frames"])
+    small = build_model(ModelConfig(**VIDEO), layers=tuple(int(v) for v in golden["layers"]))
+    load_numpy_state_dict(small, random_state_dict(small, int(golden["weights_seed"])))
+    small = small.to(dev, memory_format=torch.channels_last).eval()
+    grng = np.random.RandomState(int(golden["input_seed"]))
+    gframes = grng.randint(0, 256, (1, t, size, size, 3)).astype(np.float32)
+    gcenters = (grng.rand(1, t, 2) * size).astype(np.float32)
+    spec = dataclasses.replace(DATASETS["Penn_Action"], input_size=size)
+    kernels.reset_launches()
+    got = stream_video(small, gframes, gcenters, spec, chunk=int(golden["chunk"]))
+    launched = _eval_launches()
+    gerr = max_rel_err(torch.from_numpy(got), torch.from_numpy(golden["heatmaps"]))
+    emit({"phase": "video_golden", "shape": list(got.shape), "max_rel_err_vs_jax": gerr, "tol": 1e-4,
+          "kernel_launches": launched})
+    if not (gerr < 1e-4 and launched == {"wasp_cascade": 2, "fused_stem": 2}):
+        raise AssertionError("the card's video stream disagrees with the JAX golden stream")
+    return state
+
+
+def phase_video_stream(dev, gpu: str, state: dict, flush: torch.Tensor) -> dict:
+    """The streaming path: a 20-frame 368x368 video in 4 chunks through
+    ``stream_video_scan`` in bf16, with the launch counts set to 0 just
+    before and read just after; its time a video and a chunk (CUDA events,
+    median of 5), a profiler window for the idle share, and the f32
+    chunked stream against the one full rollout (checked at reduced depth,
+    see below).  Returns the counts."""
+    rng = np.random.RandomState(32)
+    frames = torch.from_numpy(rng.randint(0, 256, (1, VIDEO_FRAMES, 368, 368, 3)).astype(np.uint8)).to(dev)
+    centers = torch.from_numpy((rng.rand(1, VIDEO_FRAMES, 2) * 368).astype(np.float32)).to(dev)
+    spec = DATASETS["Penn_Action"]
+    bf16 = build_model(ModelConfig(**VIDEO, compute_dtype=torch.bfloat16))
+    load_numpy_state_dict(bf16, state)
+    bf16 = bf16.to(dev, memory_format=torch.channels_last).eval()
+
+    def video():
+        return stream_video_scan(bf16, frames, centers, spec, CHUNK)
+
+    video()  # cold: cuDNN picks its algorithms, weights are cast and folded
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    heat = video()
+    torch.cuda.synchronize()
+    counts = _eval_launches()
+    times = [call_ms(video, flush) for _ in range(5)]
+    video_ms = statistics.median(times)
+    prof = profile(video, 2)
+    chunks = VIDEO_FRAMES // CHUNK
+    del bf16
+    torch.cuda.empty_cache()
+
+    # f32, chunked against the one full rollout, frame by frame.  The check
+    # runs at reduced depth: with seeded weights the full-depth decoder's
+    # output reaches ~1e7, so a ConvLSTM gate whose pre-activation sums
+    # such terms to near 0 takes the f32 rounding of the batch's conv
+    # algorithm (20 frames against 5) to O(1); the full-depth reading is
+    # reported beside it.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs, tower_max = {}, {}
+    for name, layers in (("reduced_depth", (1, 1, 1, 1)), ("full_depth", None)):
+        f32 = build_model(ModelConfig(**VIDEO), **({"layers": layers} if layers else {}))
+        load_numpy_state_dict(f32, random_state_dict(f32, seed=1) if layers else state)
+        f32 = f32.to(dev, memory_format=torch.channels_last).eval()
+        chunked = stream_video_scan(f32, frames, centers, spec, CHUNK)
+        full, _ = make_stream_step(f32, spec)(frames, centers)
+        errs[name] = [max_rel_err(chunked[:, t], full[:, t]) for t in range(VIDEO_FRAMES)]
+        with torch.no_grad():  # the decoder's output: what the ConvLSTM's gate convs sum
+            x = preprocess_images(frames[0, :CHUNK]).permute(0, 3, 1, 2)
+            feats, low = f32.backbone(x.contiguous(memory_format=torch.channels_last))
+            tower_max[name] = float(f32.decoder(f32.wasp(feats), low).abs().max())
+        del f32
+    torch.cuda.empty_cache()
+    err = max(errs["reduced_depth"])
+    row = {"phase": "video_stream", "dtype": "torch.bfloat16", "frames": VIDEO_FRAMES, "chunk": CHUNK,
+           "launches": counts, "video_ms_median": video_ms, "video_ms_all": times,
+           "chunk_ms": video_ms / chunks, "frames_per_s": VIDEO_FRAMES / video_ms * 1e3,
+           "f32_chunked_vs_full_rollout_max_rel_err": err, "tol": 1e-4,
+           "f32_chunked_vs_full_rollout_by_frame": errs, "f32_decoder_abs_max": tower_max,
+           "finite": bool(torch.isfinite(heat).all()), "gpu": gpu, "profile": prof}
+    emit(row)
+    if not (counts == {"wasp_cascade": chunks, "fused_stem": chunks} and err < 1e-4 and row["finite"]
+            and heat.shape == (1, VIDEO_FRAMES, 46, 46, 14)):
+        raise AssertionError(f"the video stream failed its checks: {row}")
+    return counts
+
+
+def _concurrent(fn, inputs) -> list:
+    """One client thread an input through ``fn``; returns each reply with
+    its wall time."""
+    results, errors = {}, {}
+
+    def client(i):
+        try:
+            t0 = time.perf_counter()
+            results[i] = fn(inputs[i])
+            results[i]["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors[i] = repr(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(inputs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if errors or len(results) != len(inputs):
+        raise AssertionError(f"requests failed or hung: {errors}")
+    return [results[i] for i in range(len(inputs))]
+
+
+def _check_video_keypoints(replies, clips) -> None:
+    for r, clip in zip(replies, clips):
+        k = np.asarray(r["keypoints"])
+        if k.shape != (len(clip), 13, 2) or not ((k >= 0) & (k < 368)).all():
+            raise AssertionError(f"bad keypoints {r['keypoints']}")
+
+
+def phase_serve_video(gpu: str) -> dict:
+    """The video server, built in-process at full width: a clip server
+    (``--batch 4``) takes /healthz and one clip over HTTP, then two rounds
+    of 8 concurrent 5-frame clips; a stream server (``--stream``) takes 2
+    concurrent 12-frame clips, 3 chunks each with the state carried.  The
+    launch counts are set to 0 just before each server is built and read
+    just after it stops."""
+    import cv2
+
+    rng = np.random.RandomState(33)
+    out, counts = {}, {}
+    for mode, extra in (("clip", ["--batch", "4"]), ("stream", ["--stream"])):
+        args = serve.parse_args(["--dataset", "Penn_Action", "--model_arch", "uniposeLSTM",
+                                 "--frame_memory", str(CHUNK), "--port", "0", *extra])
+        kernels.reset_launches()
+        server = serve.make_server(args)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            n_frames = CHUNK if mode == "clip" else 12
+            clips = [[rng.randint(0, 256, (368, 368, 3)).astype(np.uint8) for _ in range(n_frames)]
+                     for _ in range(8 if mode == "clip" else 2)]
+            body = json.dumps({"frames": [base64.b64encode(cv2.imencode(".jpg", f)[1].tobytes()).decode()
+                                          for f in clips[0]]}).encode()
+            req = urllib.request.Request(base + "/predict_video", data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                http_reply = json.loads(r.read())
+            _check_video_keypoints([http_reply], clips[:1])
+            rounds = {name: _concurrent(server.service.predict_frames, clips) for name in ("cold", "warm")}
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(30)
+        for replies in rounds.values():
+            _check_video_keypoints(replies, clips)
+        counts[mode] = _eval_launches()
+        out[mode] = {"healthz": health, "clips": len(clips), "frames_a_clip": n_frames,
+                     **{f"{name}_latency_ms": sorted(r["wall_ms"] for r in rs) for name, rs in rounds.items()},
+                     **{f"{name}_model_ms": sorted(r["ms"] for r in rs) for name, rs in rounds.items()},
+                     "launches": counts[mode]}
+    emit({"phase": "serve_video", **out, "gpu": gpu})
+    if not all(min(c.values()) > 0 for c in counts.values()):
+        raise AssertionError(f"the video server launched no kernel: {counts}")
+    return counts
 
 
 def heatmap_bound(b: int, k: int, dtype: torch.dtype, backward: bool) -> dict:
@@ -505,7 +830,7 @@ def phase_train(dev, gpu: str, loaders, dtype: torch.dtype) -> dict:
     times = [call_ms(train_step) for _ in range(TRAIN_TIMED_STEPS)]
     q = statistics.quantiles(times, n=4)
     step_ms = statistics.median(times)
-    prof = profile(train_step, 3, {"heatmap_mse": _is_heatmap_kernel, "wasp_cascade": _is_wasp_kernel})
+    prof = profile(train_step, 3, {"heatmap_mse": _is_heatmap_kernel, **OURS})
     row = {"phase": "train", "dtype": str(dtype), "batch": TRAIN_BATCH, "input": 368,
            "steps": steps_per_epoch, "epoch_loss": epoch_loss, "mAP": mAP, "path_s": path_s,
            "launches": counts, "step_ms_median": step_ms, "step_ms_p25": q[0], "step_ms_p75": q[2],
@@ -515,7 +840,7 @@ def phase_train(dev, gpu: str, loaders, dtype: torch.dtype) -> dict:
     ok = (np.isfinite(epoch_loss) and 0.0 <= mAP <= 1.0
           and counts["heatmap_mse"] == steps_per_epoch
           and counts["heatmap_mse_backward"] == steps_per_epoch
-          and counts["wasp_cascade"] > 0)
+          and counts["wasp_cascade"] > 0 and counts["fused_stem"] > 0)
     if not ok:
         raise AssertionError(f"the training path failed its checks: {row}")
     del trainer
@@ -523,31 +848,11 @@ def phase_train(dev, gpu: str, loaders, dtype: torch.dtype) -> dict:
     return counts
 
 
-def _concurrent_requests(service, images) -> list:
-    """One client thread a request through the request function below the
-    decode; returns each request's reply with its wall time."""
-    results, errors = {}, {}
-
-    def client(i):
-        try:
-            t0 = time.perf_counter()
-            results[i] = service.predict_image(images[i])
-            results[i]["wall_ms"] = (time.perf_counter() - t0) * 1e3
-        except Exception as e:  # noqa: BLE001 — reported below
-            errors[i] = repr(e)
-
-    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(images))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(300)
-    if errors or len(results) != len(images):
-        raise AssertionError(f"requests failed or hung: {errors}")
-    for r in results.values():
+def _check_image_keypoints(replies) -> None:
+    for r in replies:
         k = np.asarray(r["keypoints"])
         if k.shape != (14, 2) or not ((k >= 0) & (k < 368)).all():
             raise AssertionError(f"bad keypoints {r['keypoints']}")
-    return list(results.values())
 
 
 def phase_serve(gpu: str) -> dict:
@@ -567,12 +872,14 @@ def phase_serve(gpu: str) -> dict:
             raise AssertionError(f"/healthz said {health}")
         rng = np.random.RandomState(3)
         images = [rng.randint(0, 256, (368, 368, 3)).astype(np.uint8) for _ in range(8)]
-        rounds = {name: _concurrent_requests(server.service, images) for name in ("cold", "warm")}
+        rounds = {name: _concurrent(server.service.predict_image, images) for name in ("cold", "warm")}
+        for replies in rounds.values():
+            _check_image_keypoints(replies)
     finally:
         server.shutdown()
         server.server_close()
         thread.join(30)
-    counts = {"wasp_cascade": wc.wasp_cascade.launches}
+    counts = _eval_launches()
     emit({"phase": "serve", "healthz": health, "requests": sum(map(len, rounds.values())),
           **{f"{name}_latency_ms": sorted(r["wall_ms"] for r in rs) for name, rs in rounds.items()},
           **{f"{name}_model_ms": sorted(r["ms"] for r in rs) for name, rs in rounds.items()},
@@ -594,31 +901,49 @@ def main() -> int:
     phase_build()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     main_case = phase_kernel(dev, gpu, flush)
+    stem_main = phase_stem_kernel(dev, gpu, flush)
     hm_main = phase_heatmap_kernel(dev, gpu, flush)
     phase_model(dev, gpu, flush)
-    serve_counts = phase_serve(gpu)
+    paths = {"serve": phase_serve(gpu)}
     loaders = make_loaders("image", input_size=368, train_samples=64, val_samples=16,
                            batch_size=TRAIN_BATCH)
     phase_train_step_check(dev, _device_batch(next(iter(loaders[0])), dev))
     train_counts = {str(dt): phase_train(dev, gpu, loaders, dt) for dt in (torch.float32, torch.bfloat16)}
     phase_learning(dev, loaders)
+    del loaders
+    video_state = phase_video(dev, gpu)
+    paths["video_stream"] = phase_video_stream(dev, gpu, video_state, flush)
+    video_serve = phase_serve_video(gpu)
+    paths["serve_video"] = video_serve["clip"]
+    paths["serve_video_stream"] = video_serve["stream"]
+    paths.update({f"train {k} (validation)": v for k, v in train_counts.items()})
     main_train = train_counts["torch.float32"]  # the Trainer's default: f32
-    entries = [{
-        "name": "wasp_cascade",
-        "route": "cuda",
-        "source": "unipose_tpu_torch/csrc/wasp_cascade.cu",
-        "replaces": "unipose_tpu/ops/pallas/wasp_cascade.py:167",
-        "launches": serve_counts["wasp_cascade"],
-        "launches_by_path": {"serve": serve_counts["wasp_cascade"],
-                             **{f"train {k}": v["wasp_cascade"] for k, v in train_counts.items()}},
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes the fused WASP
-        "shape": f"{main_case['dtype']} {main_case['shape']}",
-    }]
+
+    def eval_entry(name, source, replaces, launches_path, row, **extra):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": paths[launches_path][name],
+            "launches_by_path": {k: v[name] for k, v in paths.items()},
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes the fused function
+            **extra,
+            "shape": f"{row['dtype']} {row['shape']}",
+        }
+
+    entries = [
+        eval_entry("wasp_cascade", "unipose_tpu_torch/csrc/wasp_cascade.cu",
+                   "unipose_tpu/ops/pallas/wasp_cascade.py:167", "serve", main_case),
+        eval_entry("fused_stem", "unipose_tpu_torch/csrc/fused_stem.cu",
+                   "unipose_tpu/ops/pallas/stem.py:119", "serve_video", stem_main,
+                   unfused_ms=stem_main["unfused_ms"]),
+    ]
     replaces = {"heatmap_mse": "unipose_tpu/ops/pallas/heatmap_loss.py:86 (forward pallas_call :70)",
                 "heatmap_mse_backward": "unipose_tpu/ops/pallas/heatmap_loss.py:86 (backward _bwd :106, pallas_call :111)"}
     for name, row in hm_main.items():

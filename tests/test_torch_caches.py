@@ -1,8 +1,9 @@
 """The model's weight caches follow training: an eval forward after a train
 step uses the updated weights and BN statistics.
 
-Two caches are keyed on tensor version counters: the cast weight of a bf16
-``Conv2d`` (models/layers.py) and WASP's folded weights (models/wasp.py).
+Three caches are keyed on tensor version counters: the cast weight of a
+bf16 ``Conv2d`` (models/layers.py), WASP's folded weights (models/wasp.py)
+and the ResNet's folded stem (models/resnet.py).
 ``optimizer.step()`` updates the weights in place and train-mode BN its
 running statistics; a cache that missed that would serve the old weights
 without an error.  Each case runs an eval forward, one train step and an
@@ -59,9 +60,10 @@ def _check_eval_follows_a_train_step(device, adam_kwargs):
         ).to(device),
     }
     model = _model(device)
-    before = _eval_forward(model, batch["image"])  # fills both caches
+    before = _eval_forward(model, batch["image"])  # fills the three caches
     assert model.wasp._folded is not None
-    assert model.backbone.conv1._cast is not None
+    assert model.backbone.layer1[0].conv1._cast is not None
+    stem_key = model.backbone._folded[0]
 
     gen = torch.Generator(device=device).manual_seed(43)
     use_dropout_generator(model, gen)
@@ -75,6 +77,7 @@ def _check_eval_follows_a_train_step(device, adam_kwargs):
     make_train_step(model, optimizer, spec, fused_loss=True)(state, batch)
 
     after = _eval_forward(model, batch["image"])
+    assert model.backbone._folded[0] != stem_key  # the step moved conv1 and bn1: refolded
     fresh = build_model(CONFIG, layers=REDUCED)
     fresh.load_state_dict(model.state_dict())
     fresh = fresh.to(device, memory_format=torch.channels_last)

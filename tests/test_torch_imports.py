@@ -86,7 +86,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_model(ModelConfig(), seed=0, layers=(1, 1, 1, 1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_model(ModelConfig(variant="lstm", num_classes=13), seed=0, layers=(1, 1, 1, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.make_server(serve.parse_args(["--port", "0"]))
+    for extra in ([], ["--stream"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.make_server(serve.parse_args(
+                ["--port", "0", "--dataset", "Penn_Action", "--model_arch", "uniposeLSTM"] + extra))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_train_state(ModelConfig(), TrainConfig(), seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):

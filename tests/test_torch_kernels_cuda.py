@@ -19,8 +19,10 @@ from unipose_tpu_torch.models.unipose import (
     load_numpy_state_dict,
     random_state_dict,
 )
+from unipose_tpu_torch.models.resnet import ResNet101
 from unipose_tpu_torch.models.wasp import WASP
 from unipose_tpu_torch.ops import kernels
+from unipose_tpu_torch.ops.kernels import fused_stem as fs
 from unipose_tpu_torch.ops.kernels import heatmap_mse as hm
 from unipose_tpu_torch.ops.kernels import wasp_cascade as wc
 
@@ -55,7 +57,7 @@ def test_launch_counts_reset():
     assert kernels.launch_counts()["wasp_cascade"] == 5
     kernels.reset_launches()
     assert kernels.launch_counts() == {
-        "wasp_cascade": 0, "heatmap_mse": 0, "heatmap_mse_backward": 0,
+        "wasp_cascade": 0, "heatmap_mse": 0, "heatmap_mse_backward": 0, "fused_stem": 0,
     }
 
 
@@ -95,10 +97,70 @@ def test_model_forward_on_card_matches_cpu(cuda):
     with torch.no_grad():
         want = model(x)
         model = model.to(cuda, memory_format=torch.channels_last)
-        before = wc.wasp_cascade.launches
+        before = (wc.wasp_cascade.launches, fs.fused_stem.launches)
         got = model(x.to(cuda))
         torch.cuda.synchronize()
-    assert wc.wasp_cascade.launches == before + 1
+    assert (wc.wasp_cascade.launches, fs.fused_stem.launches) == (before[0] + 1, before[1] + 1)
+    assert _max_rel_err(got, want) < 1e-4
+
+
+def _stem_folded(stem_s2d, seed, dev):
+    net = ResNet101(layers=(1, 1, 1, 1), stem_s2d=stem_s2d)
+    load_numpy_state_dict(net, random_state_dict(net, seed=seed))
+    return {k: v.to(dev) for k, v in fs.fold_stem_params(net).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 368, 368), (3, 128, 128), (2, 67, 45)])
+@pytest.mark.parametrize("stem_s2d", [False, True], ids=["conv1", "conv1_s2d"])
+def test_fused_stem_matches_plain(cuda, dtype, shape, stem_s2d):
+    """At the model's size, a small one and an odd one, with 7x7 weights
+    (zero taps skipped) and s2d weights (all 192 taps); two calls give the
+    same bits."""
+    folded = fs.cast_folded(_stem_folded(stem_s2d, 20, cuda), dtype)
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = (torch.rand(*shape, 3, generator=gen, device=cuda) - 0.5).to(dtype)
+    before = fs.fused_stem.launches
+    got = fs.fused_stem(x, folded)
+    again = fs.fused_stem(x, folded)
+    torch.cuda.synchronize()
+    assert fs.fused_stem.launches == before + 2
+    b, h, w = shape
+    assert got.dtype == dtype and got.shape == (b, -(-h // 4), -(-w // 4), 64)
+    assert torch.equal(got, again)
+    assert _max_rel_err(got, fs.fused_stem_reference(x, folded)) < TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_fused_stem_raises_on_what_it_does_not_take(cuda):
+    folded = _stem_folded(False, 21, cuda)
+    with pytest.raises(TypeError):
+        fs.fused_stem(torch.zeros(1, 16, 16, 3, device=cuda, dtype=torch.float16), folded)
+    with pytest.raises(ValueError):  # an NCHW tensor viewed as NHWC: not contiguous
+        fs.fused_stem(torch.zeros(1, 3, 16, 16, device=cuda).permute(0, 2, 3, 1), folded)
+    with pytest.raises(ValueError):
+        fs.fused_stem(torch.zeros(1, 16, 16, 3, device=cuda), {**folded, "w4": folded["w4"].cpu()})
+
+
+@pytest.mark.cuda
+def test_video_model_on_card_matches_cpu(cuda):
+    """A reduced-depth UniPoseLSTM's f32 forward on the card (one fused_stem
+    and one wasp_cascade launch for the chunk's frames) against the CPU."""
+    from unipose_tpu_torch.core.config import ModelConfig
+
+    model = build_model(ModelConfig(num_classes=13, variant="lstm"), layers=(1, 1, 1, 1)).eval()
+    load_numpy_state_dict(model, random_state_dict(model, seed=22))
+    rng = np.random.RandomState(23)
+    x = torch.from_numpy(rng.rand(1, 3, 3, 128, 128).astype(np.float32) - 0.5)
+    cm = torch.from_numpy(rng.rand(1, 3, 1, 128, 128).astype(np.float32))
+    with torch.no_grad():
+        want, _ = model(x, cm)
+        model = model.to(cuda, memory_format=torch.channels_last)
+        before = (wc.wasp_cascade.launches, fs.fused_stem.launches)
+        got, _ = model(x.to(cuda), cm.to(cuda))
+        torch.cuda.synchronize()
+    assert (wc.wasp_cascade.launches, fs.fused_stem.launches) == (before[0] + 1, before[1] + 1)
     assert _max_rel_err(got, want) < 1e-4
 
 

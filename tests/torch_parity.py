@@ -1,9 +1,12 @@
 """Shared helpers for the tests that hold ``unipose_tpu_torch`` against
 ``unipose_tpu``: the parity measure, seeded BN perturbation of JAX
-variables, and a JAX UniPose whose backbone depth can be cut."""
+variables, a JAX UniPose whose backbone depth can be cut, and the same cut
+for the JAX UniPoseLSTM."""
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Tuple
 
 import jax
@@ -94,3 +97,18 @@ def init_composed(module: ComposedUniPose, seed: int, size: int = 64):
         jax.random.PRNGKey(seed), x
     )
     return perturb_bn(variables, seed + 1)
+
+
+@contextlib.contextmanager
+def reduced_lstm_depth(layers: Tuple[int, int, int, int]):
+    """Inside the block, the JAX ``UniPoseLSTM`` builds its backbone with
+    ``layers`` (the JAX model has no depth field; its parameter names do not
+    change).  Every trace of the model, ``jit`` and ``apply``, must happen
+    inside."""
+    import pytest
+
+    from unipose_tpu.models import unipose_lstm
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(unipose_lstm, "ResNet101", functools.partial(ResNet101, layers=layers))
+        yield

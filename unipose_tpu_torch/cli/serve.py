@@ -1,25 +1,40 @@
-"""Pose-estimation server for the image model, on the card.
+"""Pose-estimation server for the image and video models, on the card.
 
-Counterpart of the image path of ``unipose_tpu/cli/serve.py``: the model is
-built in-process (random init from seed 0, or ``--pretrained`` reference
-weights), runs in bf16, and takes raw uint8 pixels that are normalised on
+Counterpart of ``unipose_tpu/cli/serve.py``.  The model is built in-process
+(random init from seed 0, or ``--pretrained`` reference weights; the JAX
+server serves video only from exported artifacts, which the port does not
+have yet), runs in bf16, and takes raw uint8 pixels that are normalised on
 the card.  Concurrent requests are grouped by a ``MicroBatcher`` and run at
 their real batch size (no padding to a static batch).
 
 Endpoints:
-  GET  /healthz  -> {"status": "ok", "kind": "image", ...}
-  POST /predict  body = JPEG/PNG bytes
-                 -> {"keypoints": [[x, y], ...K], "ms": float}
+  GET  /healthz        -> {"status": "ok", "kind": "image"|"video"|"video_stream", ...}
+  POST /predict        body = JPEG/PNG bytes (image model)
+                       -> {"keypoints": [[x, y], ...K], "ms": float}
+  POST /predict_video  body = {"frames": ["<b64 jpeg>", ...]} (video model)
+                       -> {"keypoints": [[[x, y], ...K], ...T], "ms": float}
      keypoints are per-channel heatmap argmaxes scaled back to the
      image's pixels (the demo path's get_kpts semantics).
 
+Video serving (``--model_arch uniposeLSTM``) has two modes:
+  * clip (default): a clip of at most ``--frame_memory`` frames, padded by
+    repeating its last frame; concurrent clips micro-batch up to ``--batch``;
+  * ``--stream``: a clip of any length, run in ``--frame_memory`` chunks with
+    the ConvLSTM state carried from chunk to chunk.  Each request's state is
+    its own, so requests are not coalesced; chunk calls reach the card
+    through one FIFO.
+The centermap is a sigma-3 Gaussian at the frame centre, built once.
+
 Usage:
   python -m unipose_tpu_torch.cli.serve --dataset LSP [--pretrained w.pth.tar]
+  python -m unipose_tpu_torch.cli.serve --dataset Penn_Action \\
+      --model_arch uniposeLSTM --frame_memory 5 [--stream]
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
 import json
 import threading
 import time
@@ -33,24 +48,27 @@ from unipose_tpu_torch.train.steps import preprocess_images
 
 
 class MicroBatcher:
-    """Group concurrent single-image requests into one model call.
+    """Group concurrent requests (images, or clips) into one model call.
 
     A dispatcher thread drains up to ``batch`` queued requests per call
-    (waiting ``wait_ms`` for stragglers once one is pending) and fans the
-    results back out.  An error raised by a call reaches that call's
+    (waiting ``wait_ms`` for stragglers once one is pending), hands
+    ``stack`` of their inputs to ``call``, and fans the results (indexable
+    by request) back out.  An error raised by a call reaches that call's
     requests only.  With batch 1 it is a FIFO that serialises device access.
     """
 
-    def __init__(self, call, batch: int, wait_ms: float = 2.0):
+    def __init__(self, call, batch: int, wait_ms: float = 2.0, stack=np.stack):
         self.call = call
+        self.stack = stack
         self.batch = int(batch)
         self.wait = (wait_ms / 1e3) if self.batch > 1 else 0.0
         self._cv = threading.Condition()
         self._queue = []
         threading.Thread(target=self._run, daemon=True).start()
 
-    def infer(self, x: np.ndarray) -> np.ndarray:
-        """x: one (H, W, 3) image -> its (h, w, K+1) heatmaps."""
+    def infer(self, x):
+        """x: one request's input (an (H, W, 3) image) -> its result (the
+        image's (h, w, K+1) heatmaps)."""
         item = {"x": x, "done": threading.Event(), "out": None, "err": None}
         with self._cv:
             self._queue.append(item)
@@ -75,9 +93,9 @@ class MicroBatcher:
                 items = self._queue[: self.batch]
                 del self._queue[: self.batch]
             try:
-                heat = np.asarray(self.call(np.stack([it["x"] for it in items])))
+                outs = self.call(self.stack([it["x"] for it in items]))
                 for i, it in enumerate(items):
-                    it["out"] = heat[i]
+                    it["out"] = outs[i]
             except Exception as e:  # noqa: BLE001 — fan the error out
                 for it in items:
                     it["err"] = e
@@ -194,11 +212,106 @@ class ImageService:
         return self.predict_image(_decode_image(body))
 
 
-def http_server(service: ImageService, host: str, port: int):
-    """A ThreadingHTTPServer for ``service`` (``server.service`` keeps it)."""
+def _centermaps(b: int, t: int, size: int) -> np.ndarray:
+    """(B, T, H, W, 1) sigma-3 Gaussian at the frame centre, unclamped: the
+    JAX server's centermap (serve.py:117-124)."""
+    ys, xs = np.mgrid[:size, :size].astype(np.float32)
+    c = (size - 1) / 2.0
+    g = np.exp(-((xs - c) ** 2 + (ys - c) ** 2) / (2.0 * 3.0**2))
+    return np.broadcast_to(g[None, None, :, :, None], (b, t, size, size, 1)).copy()
+
+
+def _pad_frames(frames: np.ndarray, t: int) -> np.ndarray:
+    """(n, H, W, 3) -> (t, H, W, 3), repeating the last frame."""
+    if frames.shape[0] < t:
+        frames = np.concatenate([frames, np.repeat(frames[-1:], t - frames.shape[0], axis=0)])
+    return frames
+
+
+class VideoService:
+    """The video model and the request function of ``/predict_video``.
+
+    Clip mode: a clip of at most ``clip_t`` frames, padded to ``clip_t``;
+    concurrent clips micro-batch up to ``batch``.  Stream mode: any length,
+    in ``clip_t`` chunks with (cell, hide) carried per request; every chunk
+    call goes through one FIFO (a ``MicroBatcher`` of batch 1)."""
+
+    def __init__(self, model, *, size: int, num_joints: int, clip_t: int, stream: bool = False,
+                 batch: int = 1, wait_ms: float = 2.0):
+        self.model = model
+        self.size = int(size)
+        self.num_joints = int(num_joints)
+        self.clip_t = int(clip_t)
+        self.stream = bool(stream)
+        self.device = next(model.parameters()).device
+        batch = 1 if stream else int(batch)
+        cm = torch.from_numpy(_centermaps(batch, self.clip_t, self.size)).to(self.device)
+        self.centermap = cm.permute(0, 1, 4, 2, 3)  # (batch, T, 1, H, W), kept on the card
+        if stream:
+            self.batcher = MicroBatcher(lambda calls: [calls[0]()], 1, stack=list)
+        else:
+            self.batcher = MicroBatcher(self._call_clips, batch, wait_ms=wait_ms)
+        self.meta = {
+            "kind": "video_stream" if stream else "video",
+            "input": [batch, self.clip_t, self.size, self.size, 3],
+            "input_dtype": "uint8",
+            "num_joints": self.num_joints,
+            "batch": batch,
+            "device": str(self.device),
+        }
+
+    @torch.no_grad()
+    def _run(self, clips: np.ndarray, state=None):
+        """(n, T, H, W, 3) uint8 -> ((n, T, h, w, K+1) f32 on the host, state)."""
+        x = preprocess_images(torch.from_numpy(clips).to(self.device)).permute(0, 1, 4, 2, 3)
+        heat, state = self.model(x, self.centermap[: len(clips)], initial_state=state)
+        return heat.permute(0, 1, 3, 4, 2).cpu().numpy(), state
+
+    def _call_clips(self, clips: np.ndarray) -> np.ndarray:
+        return self._run(clips)[0]
+
+    def predict_frames(self, frames) -> dict:
+        """Decoded H x W x 3 uint8 frames of one clip -> their keypoints."""
+        if not frames or any(f.dtype != np.uint8 or f.ndim != 3 or f.shape[2] != 3 for f in frames):
+            raise ValueError("expected a non-empty list of H x W x 3 uint8 frames")
+        t_real = len(frames)
+        if not self.stream and t_real > self.clip_t:
+            raise ValueError(
+                f"clip too long: {t_real} frames > clip length {self.clip_t} "
+                "(serve with --stream to serve long videos)"
+            )
+        dims = [(f.shape[1], f.shape[0]) for f in frames]  # (w0, h0)
+        clip = np.stack([_resize(f, self.size) for f in frames])
+        t0 = time.perf_counter()
+        if self.stream:
+            heats, state = [], None
+            for start in range(0, t_real, self.clip_t):
+                chunk = _pad_frames(clip[start : start + self.clip_t], self.clip_t)[None]
+                heat, state = self.batcher.infer(lambda c=chunk, s=state: self._run(c, s))
+                heats.append(heat[0])
+            heat = np.concatenate(heats)
+        else:
+            heat = self.batcher.infer(_pad_frames(clip, self.clip_t))
+        dt = (time.perf_counter() - t0) * 1e3
+        return {
+            "keypoints": [_argmax_kpts(heat[j], self.num_joints, *dims[j]) for j in range(t_real)],
+            "ms": round(dt, 2),
+        }
+
+    def predict(self, body: bytes) -> dict:
+        frames_b64 = json.loads(body).get("frames")
+        if not isinstance(frames_b64, list) or not frames_b64:
+            raise ValueError('body must be {"frames": ["<b64 jpeg>", ...]}')
+        return self.predict_frames([_decode_image(base64.b64decode(f)) for f in frames_b64])
+
+
+def http_server(service, host: str, port: int):
+    """A ThreadingHTTPServer for an ``ImageService`` or a ``VideoService``
+    (``server.service`` keeps it)."""
     import http.server
 
-    handler = build_handler({"/predict": service.predict}, service.meta)
+    route = "/predict_video" if isinstance(service, VideoService) else "/predict"
+    handler = build_handler({route: service.predict}, service.meta)
     server = http.server.ThreadingHTTPServer((host, port), handler)
     server.service = service
     return server
@@ -215,27 +328,40 @@ def make_server(args):
 
     device = resolve_device(getattr(args, "device", None))
     spec = DATASETS[args.dataset]
+    video = args.model_arch == "uniposeLSTM"
     config = ModelConfig(
-        dataset=args.dataset, num_classes=spec.num_joints, compute_dtype=torch.bfloat16
+        dataset=args.dataset, num_classes=spec.num_joints, compute_dtype=torch.bfloat16,
+        variant="lstm" if video else "image", frame_memory=args.frame_memory,
     )
     model = init_model(config, seed=0, device=device)
     if args.pretrained:
         report = load_state_dict_intersection(model, load_torch_checkpoint(args.pretrained))
         print(f"warm start: loaded {len(report['loaded'])} tensors, "
               f"skipped {len(report['skipped'])}")
-    service = ImageService(
-        model, size=args.size, num_joints=spec.num_joints,
-        batch=args.batch, wait_ms=args.batch_wait_ms,
-    )
+    if video:
+        service = VideoService(
+            model, size=args.size, num_joints=spec.num_joints, clip_t=args.frame_memory,
+            stream=args.stream, batch=args.batch, wait_ms=args.batch_wait_ms,
+        )
+    else:
+        service = ImageService(
+            model, size=args.size, num_joints=spec.num_joints,
+            batch=args.batch, wait_ms=args.batch_wait_ms,
+        )
     return http_server(service, args.host, args.port)
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="unipose_tpu_torch image server")
+    p = argparse.ArgumentParser(description="unipose_tpu_torch pose server")
     p.add_argument("--dataset", default="LSP", choices=sorted(DATASETS))
+    p.add_argument("--model_arch", default="unipose", choices=("unipose", "uniposeLSTM"))
+    p.add_argument("--frame_memory", type=int, default=5,
+                   help="video: frames a clip (clip mode) or a chunk (--stream)")
+    p.add_argument("--stream", action="store_true",
+                   help="video: clips of any length, ConvLSTM state carried across chunks")
     p.add_argument("--pretrained", default=None, help="reference *.pth.tar")
     p.add_argument("--size", type=int, default=368, help="model input size")
-    p.add_argument("--batch", type=int, default=1, help="largest micro-batch")
+    p.add_argument("--batch", type=int, default=1, help="largest micro-batch (images or clips)")
     p.add_argument(
         "--batch_wait_ms", type=float, default=2.0,
         help="micro-batching: wait this long for concurrent requests",

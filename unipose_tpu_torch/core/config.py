@@ -1,11 +1,11 @@
-"""Configuration layer: dataset specs, the image model config and the
-image training recipe.
+"""Configuration layer: dataset specs, the model config and the image
+training recipe.
 
 Counterpart of ``unipose_tpu/core/config.py``.  The dataset specs are copied
-as they are; ``ModelConfig`` holds the image model's fields, with
+as they are; ``ModelConfig`` holds the image and video models' fields, with
 ``compute_dtype`` a ``torch.dtype``; ``TrainConfig`` holds the image
-training fields.  The video, parallelism and checkpoint-manager fields
-arrive with the slices that use them.
+training fields.  The video-training, parallelism and checkpoint-manager
+fields arrive with the slices that use them.
 """
 
 from __future__ import annotations
@@ -141,16 +141,17 @@ DATASETS = {d.name: d for d in (LSP, MPII, PENN_ACTION, BBC, NTID, POSETRACK)}
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Image model hyperparameters.
+    """Model hyperparameters.
 
-    Defaults mirror the reference model constructor
-    (Reference: model/unipose.py:9-10).
+    Defaults mirror the reference model constructors
+    (Reference: model/unipose.py:9-10, model/uniposeLSTM.py:68-69).
     """
 
     dataset: str = "LSP"
     num_classes: int = 14
     output_stride: int = 16
     stride: int = 8
+    variant: str = "image"  # "image" | "lstm"
     # dtype policy: the f32 weights are cast once to the compute dtype;
     # BN statistics and heatmaps stay f32.
     compute_dtype: torch.dtype = torch.float32
@@ -161,6 +162,13 @@ class ModelConfig:
     # BatchNorm normalises with (and does not update) its running stats; its
     # affine parameters still train (Reference: model/unipose.py:24-25,40-45).
     freeze_bn: bool = False
+    # Video variant: initialise the 11x11 head's conv biases at the positive
+    # torch bound (+1/sqrt(fan_in)) instead of U(+-bound), so every channel
+    # behind the head's final ReLU starts alive (``models.layers.conv``'s
+    # ``bias_positive``).
+    head_positive_bias: bool = False
+    # Video variant only: number of ConvLSTM rollout frames (a chunk).
+    frame_memory: int = 5
 
 
 # ---------------------------------------------------------------------------

@@ -56,12 +56,26 @@ def conv(
     padding: int = 0,
     dilation: int = 1,
     bias: bool = False,
+    torch_default_init: bool = False,
+    bias_positive: bool = False,
 ) -> Conv2d:
-    """The conv factory (torch ``nn.Conv2d`` arguments)."""
-    return Conv2d(
+    """The conv factory (torch ``nn.Conv2d`` arguments), with the init
+    family that :func:`init_weights` gives it (JAX layers.py:138-161):
+    He-normal fan_out by default, the reference's explicit init for the
+    backbone, WASP and decoder; with ``torch_default_init``, torch's own
+    ``nn.Conv2d`` init, U(+-1/sqrt(fan_in)) for weight and bias, which the
+    reference's ConvLSTM and 11x11 head keep since it never re-inits them.
+    The difference matters to training from scratch: He fan_out weights are
+    ~2.5x larger at the head's fan-in, and behind its final ReLU output
+    channels die at init.  ``bias_positive`` sets the bias to +1/sqrt(fan_in)
+    so that every such channel starts alive."""
+    m = Conv2d(
         in_ch, out_ch, kernel_size,
         stride=stride, padding=padding, dilation=dilation, bias=bias,
     )
+    m.torch_default_init = torch_default_init
+    m.bias_positive = bias_positive
+    return m
 
 
 def batch_norm(channels: int) -> nn.BatchNorm2d:
@@ -105,12 +119,24 @@ def use_dropout_generator(module: nn.Module, generator) -> None:
 
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """The reference's explicit init for backbone, WASP and decoder convs
-    (resnet.py:126-133, wasp.py:92-103): He-normal fan_out weights and zero
-    biases.  BatchNorm keeps its default (weight 1, bias 0, mean 0, var 1).
-    """
+    """Every conv's init from ``generator``, by the family :func:`conv` gave
+    it: the reference's explicit init for backbone, WASP and decoder convs
+    (resnet.py:126-133, wasp.py:92-103), He-normal fan_out weights and zero
+    biases; or torch's default, U(+-1/sqrt(fan_in)) (``bias_positive``: the
+    bias at +1/sqrt(fan_in)).  BatchNorm keeps its default (weight 1, bias 0,
+    mean 0, var 1)."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if not isinstance(m, nn.Conv2d):
+            continue
+        if getattr(m, "torch_default_init", False):
+            bound = m.weight[0].numel() ** -0.5
+            m.weight.uniform_(-bound, bound, generator=generator)
+            if m.bias is not None:
+                if m.bias_positive:
+                    m.bias.fill_(bound)
+                else:
+                    m.bias.uniform_(-bound, bound, generator=generator)
+        else:
             nn.init.kaiming_normal_(
                 m.weight, mode="fan_out", nonlinearity="relu", generator=generator
             )

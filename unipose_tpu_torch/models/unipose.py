@@ -23,6 +23,7 @@ from unipose_tpu_torch.core.config import ModelConfig
 from unipose_tpu_torch.models.decoder import Decoder
 from unipose_tpu_torch.models.layers import init_weights
 from unipose_tpu_torch.models.resnet import ResNet101
+from unipose_tpu_torch.models.unipose_lstm import UniPoseLSTM
 from unipose_tpu_torch.models.wasp import WASP
 from unipose_tpu_torch.ops.resize import bilinear_resize
 
@@ -78,9 +79,23 @@ class UniPose(nn.Module):
 
 def build_model(
     config: ModelConfig, layers: Tuple[int, int, int, int] = FULL_DEPTH
-) -> UniPose:
-    """Factory mirroring the reference constructor (model/unipose.py:9).
-    ``layers`` cuts the backbone's depth (tests and the golden check)."""
+) -> nn.Module:
+    """Factory mirroring the reference constructors (model/unipose.py:9,
+    model/uniposeLSTM.py:68), by ``config.variant``.  ``layers`` cuts the
+    backbone's depth (tests and the golden checks)."""
+    if config.variant == "lstm":
+        return UniPoseLSTM(
+            num_classes=config.num_classes,
+            output_stride=config.output_stride,
+            stride=config.stride,
+            wasp_double_conv2=config.wasp_double_conv2,
+            compute_dtype=config.compute_dtype,
+            layers=layers,
+            freeze_bn=config.freeze_bn,
+            head_positive_bias=config.head_positive_bias,
+        )
+    if config.variant != "image":
+        raise ValueError(f"unknown variant {config.variant!r}")
     return UniPose(
         num_classes=config.num_classes,
         output_stride=config.output_stride,
@@ -97,10 +112,11 @@ def init_model(
     seed: int = 0,
     device=None,
     layers: Tuple[int, int, int, int] = FULL_DEPTH,
-) -> UniPose:
-    """Build a model with the reference's init drawn from ``seed`` (on the
-    CPU, so a seed gives the same weights on every device), in eval mode on
-    ``device`` (the card unless the caller passes ``device="cpu"``)."""
+) -> nn.Module:
+    """Build a model of ``config.variant`` with the reference's init drawn
+    from ``seed`` (on the CPU, so a seed gives the same weights on every
+    device), in eval mode on ``device`` (the card unless the caller passes
+    ``device="cpu"``)."""
     device = resolve_device(device)
     model = build_model(config, layers=layers)
     init_weights(model, torch.Generator().manual_seed(seed))
@@ -110,7 +126,7 @@ def init_model(
 def random_state_dict(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
     """A ``state_dict`` for ``model`` drawn with numpy from ``seed``, so the
     JAX package can load the same weights: He-normal fan_out conv weights,
-    small random conv biases, and BN affine parameters and running
+    small random conv biases (the LSTM's and the head's too), and BN affine parameters and running
     statistics perturbed as tests/test_parity_full.py:47-61 does, so that
     eval-mode BN is a real transform."""
     rng = np.random.RandomState(seed)

@@ -19,7 +19,7 @@ import torch.nn as nn
 
 from unipose_tpu_torch.core.config import DatasetSpec
 from unipose_tpu_torch.eval.metrics import get_max_preds_device
-from unipose_tpu_torch.ops.heatmap import render_targets
+from unipose_tpu_torch.ops.heatmap import gaussian_heatmaps, render_targets
 from unipose_tpu_torch.ops.kernels.heatmap_mse import heatmap_mse
 
 MEAN = 128.0
@@ -35,6 +35,13 @@ def make_targets(kpts: torch.Tensor, spec: DatasetSpec) -> torch.Tensor:
     """(..., K, 3) keypoints -> (..., H/stride, W/stride, K+1) heatmaps."""
     size = spec.input_size
     return render_targets(kpts[..., :2], size, size, spec.stride, spec.sigma)
+
+
+def make_centermaps(centers: torch.Tensor, spec: DatasetSpec) -> torch.Tensor:
+    """(..., 2) centers -> (..., H, W, 1) full-resolution sigma-3 centermaps
+    (utils/lsp_lspet_data.py:236-240, penn_action_data.py:129-133)."""
+    size = spec.input_size
+    return gaussian_heatmaps(centers, (size, size), 3.0)[..., None]
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
