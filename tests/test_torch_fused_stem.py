@@ -8,6 +8,7 @@ and by chip_smoke.py."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -227,3 +228,52 @@ def test_wrapper_checks_reject_bad_inputs():
             port_kernel._check(x, folded)
     with pytest.raises(ValueError):
         port_kernel._check(torch.zeros(1, 8, 8, 3), {**folded, "w4": folded["w4"][:147]})
+
+
+@pytest.mark.parametrize("stem_s2d", [False, True], ids=["conv1", "conv1_s2d"])
+def test_packed_weights_round_trip(stem_s2d):
+    """The bf16 kernel's weights: (16 taps, 16, 64), row (dy*2 + dx)*3 + c
+    of tap ti*4 + tj as in w4, rows 12-15 zero; unpacking gives w4 back."""
+    _, _, port = _pair(stem_s2d, seed=19)
+    w4 = port_kernel.fold_stem_params(port)["w4"]
+    packed = port_kernel.pack_stem_weights(w4)
+    assert packed.shape == (16, 16, 64)
+    assert not packed[:, 12:].any()
+    for tap in (0, 5, 15):
+        torch.testing.assert_close(packed[tap, :12], w4[tap * 12:(tap + 1) * 12], rtol=0, atol=0)
+    torch.testing.assert_close(packed[:, :12].reshape(192, 64), w4, rtol=0, atol=0)  # unpacked
+    cast = port_kernel.cast_folded(port_kernel.fold_stem_params(port), torch.bfloat16)
+    torch.testing.assert_close(cast["w16"], port_kernel.pack_stem_weights(cast["w4"]), rtol=0, atol=0)
+    assert port_kernel.cast_folded(cast, torch.bfloat16)["w16"] is cast["w16"]
+    assert "w16" not in port_kernel.cast_folded(cast, torch.float32)
+
+
+def _kernel_index_map_stem(x, folded):
+    """The bf16 kernel's arithmetic in f32, following its index map: the
+    space-to-depth(2) input of 16 channels ((dy*2 + dx)*3 + c, then 4
+    zeros), conv output (r, q) taking tap (ti, tj) from s2d pixel
+    (r + ti - 2, q + tj - 2) (0 outside) as one k16 step against the packed
+    weights; scale, bias, ReLU; conv outputs outside the image 0 and the
+    3x3/2 pool starting from 0."""
+    b, h, w, _ = x.shape
+    hc, wc = (h + 1) // 2, (w + 1) // 2
+    xp = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
+    s2d = xp.reshape(b, hc, 2, wc, 2, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, hc, wc, 12)
+    s2d = F.pad(s2d, (0, 4, 2, 1, 2, 1))
+    taps = torch.stack([s2d[:, ti:ti + hc, tj:tj + wc] for ti in range(4) for tj in range(4)], dim=3)
+    conv = torch.einsum("bhwtk,tkn->bhwn", taps, port_kernel.pack_stem_weights(folded["w4"]))
+    act = torch.relu(conv * folded["scale"] + folded["bias"]).permute(0, 3, 1, 2)
+    pooled = F.max_pool2d(F.pad(act, (1, 1, 1, 1)), 3, 2)
+    return pooled.permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("shape", [(1, 368, 368), (2, 128, 128), (2, 67, 45)],
+                         ids=["368", "128", "67x45"])
+def test_kernel_index_map_matches_plain(shape):
+    _, _, port = _pair(False, seed=20)
+    folded = port_kernel.fold_stem_params(port)
+    x = torch.from_numpy(_input((*shape, 3), seed=21))
+    got = _kernel_index_map_stem(x, folded)
+    want = port_kernel.fused_stem_reference(x, folded)
+    assert got.shape == want.shape
+    assert max_rel_err(got.numpy(), want.numpy()) < 1e-6

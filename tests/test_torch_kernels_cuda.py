@@ -64,16 +64,20 @@ def test_launch_counts_reset():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,dilations", [(23, (18, 12, 6)), (46, (36, 24, 12)), (8, (18, 12, 6))])
-@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("b", [1, 3, 32])
 def test_wasp_cascade_matches_plain(cuda, dtype, s, dilations, b):
+    """Batch 1 and 3 split the bf16 K loops, batch 32 at S >= 23 does not;
+    two calls give the same bits (the split-K sum has a fixed order)."""
     folded = _folded(11, cuda, dtype)
     gen = torch.Generator(device=cuda).manual_seed(s * 10 + b)
     x = (torch.rand(b, s, s, 2048, generator=gen, device=cuda) * 0.5).to(dtype)
     before = wc.wasp_cascade.launches
     got = wc.wasp_cascade(x, folded, dilations)
+    again = wc.wasp_cascade(x, folded, dilations)
     torch.cuda.synchronize()
-    assert wc.wasp_cascade.launches == before + 1
+    assert wc.wasp_cascade.launches == before + 2
     assert got.dtype == dtype and got.shape == (b, s, s, 256)
+    assert torch.equal(got, again)
     want = wc.wasp_cascade_reference(x, folded, dilations)
     assert _max_rel_err(got, want) < TOL[dtype]
 
@@ -112,12 +116,13 @@ def _stem_folded(stem_s2d, seed, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 368, 368), (3, 128, 128), (2, 67, 45)])
+@pytest.mark.parametrize("shape", [(1, 368, 368), (32, 368, 368), (3, 128, 128), (2, 67, 45)])
 @pytest.mark.parametrize("stem_s2d", [False, True], ids=["conv1", "conv1_s2d"])
 def test_fused_stem_matches_plain(cuda, dtype, shape, stem_s2d):
-    """At the model's size, a small one and an odd one, with 7x7 weights
-    (zero taps skipped) and s2d weights (all 192 taps); two calls give the
-    same bits."""
+    """At the model's size (batch 1 and 32), a small one and an odd one
+    whose pooled size is no multiple of the 8x8 tile, with 7x7 weights
+    (zero taps skipped in f32) and s2d weights (all 192 taps); two calls
+    give the same bits."""
     folded = fs.cast_folded(_stem_folded(stem_s2d, 20, cuda), dtype)
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
     x = (torch.rand(*shape, 3, generator=gen, device=cuda) - 0.5).to(dtype)
@@ -130,6 +135,14 @@ def test_fused_stem_matches_plain(cuda, dtype, shape, stem_s2d):
     assert got.dtype == dtype and got.shape == (b, -(-h // 4), -(-w // 4), 64)
     assert torch.equal(got, again)
     assert _max_rel_err(got, fs.fused_stem_reference(x, folded)) < TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_fit_two_blocks_an_sm(cuda):
+    """The tensor-core kernels' shared memory and registers leave room for
+    at least two resident blocks an SM."""
+    assert fs.blocks_per_sm(torch.bfloat16) >= 2
+    assert wc.blocks_per_sm() >= 2
 
 
 @pytest.mark.cuda

@@ -152,3 +152,80 @@ def test_wrapper_checks_reject_bad_inputs():
         port_kernel._check(good, folded, (18, 0, 6))
     with pytest.raises(ValueError):
         port_kernel._check(good, {**folded, "wc": folded["wc"][:1024]}, (18, 12, 6))
+
+
+SPLIT_DILATIONS = {8: (18, 12, 6), 23: (18, 12, 6), 46: (36, 24, 12)}
+SMS = 132  # an H100 SXM
+
+
+@pytest.mark.parametrize("s", [8, 23, 46])
+@pytest.mark.parametrize("b", [1, 3, 32])
+def test_split_plan(b, s):
+    """The bf16 kernel's split-K plan: the slices tile each product's K
+    steps exactly, every K tile lies inside one tap or concat segment, a
+    split fills the card (or gives each slice one K step), batch 1 fills
+    the card at S >= 23, batch 32 there does not split; and the slices'
+    partial products sum to the whole product."""
+    d = SPLIT_DILATIONS[s]
+    plan = port_kernel.split_plan(b, s, d, SMS)
+    assert plan == port_kernel.split_plan(b, s, d, SMS)
+    m = b * s * s
+    ks = [2048] + [256 * len(port_kernel.active_taps(di, s)) for di in d] + [256, 1280]
+    assert [p.name for p in plan] == ["aspp1", "x2", "x3", "x4", "branches", "concat"]
+    assert [p.rows for p in plan] == [m, m, m, m, 4 * m, m]
+    assert [p.k for p in plan] == ks
+    assert 256 % port_kernel.TILE_K == 0
+    rng = np.random.RandomState(b * 100 + s)
+    for p in plan:
+        steps = p.k // port_kernel.TILE_K
+        assert p.k % port_kernel.TILE_K == 0 and 1 <= p.slices <= steps
+        # slice i takes K steps [i * steps // n, (i + 1) * steps // n), as the kernel cuts them
+        ranges = [(i * steps // p.slices, (i + 1) * steps // p.slices) for i in range(p.slices)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == steps
+        assert all(lo < hi for lo, hi in ranges)
+        assert all(a[1] == c[0] for a, c in zip(ranges, ranges[1:]))
+        if p.tiles >= SMS:
+            assert p.slices == 1
+        else:
+            assert p.tiles * p.slices >= SMS or p.slices == steps
+        if b == 1 and s >= 23:
+            assert p.tiles * p.slices >= SMS
+        if b == 32 and s >= 23:
+            assert p.slices == 1
+        a = torch.from_numpy(rng.randn(8, p.k).astype(np.float32))
+        w = torch.from_numpy(rng.randn(p.k, 16).astype(np.float32))
+        tk = port_kernel.TILE_K
+        parts = sum(a[:, lo * tk:hi * tk] @ w[lo * tk:hi * tk] for lo, hi in ranges)
+        torch.testing.assert_close(parts, a @ w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("s,d", [(8, 6), (8, 12), (23, 18)])
+def test_dilated_implicit_gemm_matches_the_conv(s, d):
+    """The DILATED product's index map: row (b, i, j), column t*256 + c
+    reads x[b, i + dy_t, j + dx_t, c] (0 in the padding) over the active
+    taps, against the weight rows the kernel reads; equal to the dilated
+    conv.  The weight rows give the HWIO weights back."""
+    rng = np.random.RandomState(s + d)
+    x = torch.from_numpy(rng.randn(2, s, s, 256).astype(np.float32))
+    w = torch.from_numpy((rng.randn(3, 3, 256, 256) * 0.05).astype(np.float32))
+    taps = port_kernel.active_taps(d, s)
+    # K step k0 of active tap t reads rows tap_id(t) * 256 + c of the HWIO
+    # weights viewed as (9 * 256, 256)
+    flat = w.reshape(9 * 256, 256)
+    rows = torch.cat([flat[(ky * 3 + kx) * 256:(ky * 3 + kx + 1) * 256] for ky, kx in taps])
+    assert rows.shape == (256 * len(taps), 256)
+    back = torch.zeros_like(w)
+    for t, (ky, kx) in enumerate(taps):
+        back[ky, kx] = rows[t * 256:(t + 1) * 256]
+    for ky in range(3):
+        for kx in range(3):
+            want = w[ky, kx] if (ky, kx) in taps else torch.zeros_like(w[ky, kx])
+            torch.testing.assert_close(back[ky, kx], want, rtol=0, atol=0)
+    padded = torch.nn.functional.pad(x, (0, 0, d, d, d, d))
+    cols = [padded[:, d + (ky - 1) * d:d + (ky - 1) * d + s, d + (kx - 1) * d:d + (kx - 1) * d + s]
+            for ky, kx in taps]
+    a = torch.cat(cols, dim=-1).reshape(-1, 256 * len(taps))
+    got = (a @ rows).reshape(2, s, s, 256)
+    want = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=d,
+                                      dilation=d).permute(0, 2, 3, 1)
+    assert max_rel_err(got.numpy(), want.numpy()) < 1e-5

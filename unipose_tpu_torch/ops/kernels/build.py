@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library, loaded with ``ctypes``.  The
-library's file name carries a digest of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded.  Builds go to
+library's file name carries a digest of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a stale
+library is never loaded.  Builds go to
 ``csrc/build/`` (listed in ``.gitignore``) at first use, or all at once,
 in parallel, through :func:`build`.
 """
@@ -44,6 +45,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))  # the shared headers
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -10,7 +10,8 @@ The stem is conv 7x7/2 pad 3 -> eval BatchNorm -> ReLU -> maxpool 3x3/2
 pad 1.  The folded weights hold the conv in its exact space-to-depth form
 (``models.resnet.s2d_stem_kernel``): a 4x4 stride-1 conv over
 space-to-depth(2) input, (192, 64) tap-major, and BN as an f32 scale and
-bias.
+bias.  The bf16 kernel takes the weights packed for its k16 tensor-core
+steps (:func:`pack_stem_weights`); :func:`cast_folded` packs them once.
 """
 
 from __future__ import annotations
@@ -49,14 +50,30 @@ def fold_stem_params(resnet) -> Dict[str, torch.Tensor]:
     }
 
 
+def pack_stem_weights(w4: torch.Tensor) -> torch.Tensor:
+    """(192, 64) tap-major weights -> (16 taps, 16, 64): tap (ti*4 + tj),
+    row (dy*2 + dx)*3 + c as in w4, rows 12-15 zero.  Each tap is then one
+    k16 step of the bf16 kernel's MMAs."""
+    packed = w4.new_zeros(16, 16, C_OUT)
+    packed[:, :12] = w4.reshape(16, 12, C_OUT)
+    return packed
+
+
 def cast_folded(folded: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     """Weights in the compute dtype, scale and bias f32 (the JAX wrapper's
-    casts, :153-155), done once instead of at every call."""
-    return {
+    casts, :153-155), and for bf16 the packed weights ``w16``, done once
+    instead of at every call."""
+    out = {
         "w4": folded["w4"].to(dtype).contiguous(),
         "scale": folded["scale"].float().contiguous(),
         "bias": folded["bias"].float().contiguous(),
     }
+    if dtype == torch.bfloat16:
+        w16 = folded.get("w16")
+        if w16 is None or w16.dtype != dtype or w16.device != out["w4"].device:
+            w16 = pack_stem_weights(out["w4"])
+        out["w16"] = w16
+    return out
 
 
 def fused_stem_reference(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -103,7 +120,15 @@ def _library() -> ctypes.CDLL:
         )
         lib.fused_stem_error_string.restype = ctypes.c_char_p
         lib.fused_stem_error_string.argtypes = [ctypes.c_int]
+        lib.fused_stem_blocks_per_sm.restype = ctypes.c_int
+        lib.fused_stem_blocks_per_sm.argtypes = [ctypes.c_int]
     return lib
+
+
+def blocks_per_sm(dtype: torch.dtype) -> int:
+    """Blocks of the ``dtype`` kernel resident on one SM at once (CUDA's
+    occupancy calculator, on the current card)."""
+    return _library().fused_stem_blocks_per_sm(0 if dtype == torch.float32 else 1)
 
 
 def fused_stem(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -111,7 +136,8 @@ def fused_stem(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor
     x.dtype.
 
     ``folded``: :func:`fold_stem_params` output (the weights are cast to
-    x.dtype; pass :func:`cast_folded` output to skip the cast).  A CPU
+    x.dtype, and packed for bf16; pass :func:`cast_folded` output to skip
+    that).  A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel or
     raises.
     """
@@ -130,7 +156,7 @@ def fused_stem(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor
         rc = lib.fused_stem_forward(
             0 if x.dtype == torch.float32 else 1,
             ctypes.c_void_p(x.data_ptr()),
-            ctypes.c_void_p(w["w4"].data_ptr()),
+            ctypes.c_void_p(w["w4" if x.dtype == torch.float32 else "w16"].data_ptr()),
             ctypes.c_void_p(w["scale"].data_ptr()),
             ctypes.c_void_p(w["bias"].data_ptr()),
             ctypes.c_void_p(out.data_ptr()),

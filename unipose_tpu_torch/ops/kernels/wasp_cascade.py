@@ -9,12 +9,16 @@ launches it.  The public functions keep the JAX layout: NHWC in, NHWC out.
 Two algebraic simplifications are baked into the folded weights, as on the
 TPU: eval-mode BatchNorm folded into each conv, and the double ``conv2``
 (wasp.py:72-80, linear after linear) collapsed to one 1x1 with ``W2 @ W2``.
+
+The bf16 kernel cuts the K loop of a product with fewer output tiles than
+the card has SMs into slices (:func:`split_plan`, computed here and passed
+to the kernel, so that a CPU test can check it).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +27,7 @@ from unipose_tpu_torch.ops.kernels import build
 
 C_IN, C_MID = 2048, 256
 GAP_SPLIT = 16  # spatial slices of the GAP partial sums (csrc GAP_SPLIT)
+TILE_M, TILE_N, TILE_K = 64, 128, 64  # the bf16 kernel's tile (csrc TBM, TBN, TBK)
 WEIGHTS = ("w1", "w2", "w3", "w4", "w2eff", "wg", "wc")
 BIASES = ("b1", "b2", "b3", "b4", "bg", "bc")
 _SHAPES = {
@@ -35,6 +40,41 @@ _SHAPES = {
     "wc": (5 * C_MID, C_MID),
     **{k: (C_MID,) for k in BIASES},
 }
+
+
+class Product(NamedTuple):
+    """One of the cascade's six products as the bf16 kernel runs it."""
+
+    name: str
+    rows: int    # M
+    k: int       # contraction depth (dilated: active taps * 256)
+    tiles: int   # TILE_M x TILE_N output tiles
+    slices: int  # K slices (1: not split); slice i of n takes K steps
+    #              [i * steps // n, (i + 1) * steps // n), steps = k // TILE_K
+
+
+def active_taps(d: int, s: int) -> List[Tuple[int, int]]:
+    """Taps (ky, kx) of a 3x3 conv of dilation d on an s x s map that reach
+    a real pixel, in the kernel's order (csrc active_taps)."""
+    return [(ky, kx) for ky in range(3) for kx in range(3)
+            if abs((ky - 1) * d) < s and abs((kx - 1) * d) < s]
+
+
+def split_plan(b: int, s: int, dilations: Sequence[int], sms: int) -> List[Product]:
+    """The bf16 kernel's split-K plan: a product with at least ``sms``
+    output tiles is not split; one with fewer has its K steps cut into
+    min(steps, ceil(sms / tiles)) contiguous slices, so that the card is
+    full.  A pure function of (B, S, dilations, SM count)."""
+    m = b * s * s
+    shapes = [("aspp1", m, C_IN)]
+    shapes += [(f"x{i + 2}", m, len(active_taps(d, s)) * C_MID) for i, d in enumerate(dilations)]
+    shapes += [("branches", 4 * m, C_MID), ("concat", m, 5 * C_MID)]
+    plan = []
+    for name, rows, k in shapes:
+        tiles = -(-rows // TILE_M) * (C_MID // TILE_N)
+        slices = 1 if tiles >= sms else min(k // TILE_K, -(-sms // tiles))
+        plan.append(Product(name, rows, k, tiles, slices))
+    return plan
 
 
 def _bn_scale_bias(bn) -> tuple:
@@ -151,11 +191,19 @@ def _library() -> ctypes.CDLL:
     if lib.wasp_cascade_forward.argtypes is None:
         lib.wasp_cascade_forward.restype = ctypes.c_int
         lib.wasp_cascade_forward.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            [ctypes.c_int] + [ctypes.c_void_p] * 20 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         )
         lib.wasp_cascade_error_string.restype = ctypes.c_char_p
         lib.wasp_cascade_error_string.argtypes = [ctypes.c_int]
+        lib.wasp_mma_blocks_per_sm.restype = ctypes.c_int
+        lib.wasp_mma_blocks_per_sm.argtypes = []
     return lib
+
+
+def blocks_per_sm() -> int:
+    """Blocks of the bf16 tensor-core GEMM resident on one SM at once (CUDA's
+    occupancy calculator, on the current card)."""
+    return _library().wasp_mma_blocks_per_sm()
 
 
 def wasp_cascade(
@@ -185,6 +233,11 @@ def wasp_cascade(
         br = torch.empty((4, m, C_MID), dtype=dt, device=x.device)
         partial = torch.empty((b, GAP_SPLIT, C_IN), dtype=torch.float32, device=x.device)
         x5 = torch.empty((b, C_MID), dtype=dt, device=x.device)
+        # the f32 CUDA-core path does not split (0 SMs: every product fills them)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count if dt == torch.bfloat16 else 0
+        plan = split_plan(b, s, dilations, sms)
+        ws_elems = max((p.slices * p.rows * C_MID for p in plan if p.slices > 1), default=0)
+        ws = torch.empty(ws_elems, dtype=torch.float32, device=x.device) if ws_elems else None
         lib = _library()
         rc = lib.wasp_cascade_forward(
             0 if dt == torch.float32 else 1,
@@ -197,7 +250,9 @@ def wasp_cascade(
             _ptr(w["wg"]), _ptr(w["bg"]),
             _ptr(w["wc"]), _ptr(w["bc"]),
             _ptr(out), _ptr(xs), _ptr(br), _ptr(partial), _ptr(x5),
+            None if ws is None else _ptr(ws),
             b, s, int(dilations[0]), int(dilations[1]), int(dilations[2]),
+            *(p.slices for p in plan),
             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
         )
     if rc != 0:
