@@ -177,12 +177,17 @@ def test_video_model_on_card_matches_cpu(cuda):
     assert _max_rel_err(got, want) < 1e-4
 
 
-def _heatmap_inputs(dev, b, k, dtype, seed):
+def _heatmap_inputs(dev, b, k, dtype, seed, h=46, w=46):
     rng = np.random.RandomState(seed)
-    pred = torch.from_numpy(rng.randn(b, 46, 46, k + 1).astype(np.float32)).to(dev, dtype)
-    kpts = rng.uniform(-40, 408, (b, k, 2)).astype(np.float32)
+    pred = torch.from_numpy(rng.randn(b, h, w, k + 1).astype(np.float32)).to(dev, dtype)
+    kpts = rng.uniform(-40, 8 * max(h, w) + 40, (b, k, 2)).astype(np.float32)
     kpts[0, :3] = ((-20.0, 10.0), (9000.0, 9000.0), (100.3, 200.9))
     return pred, torch.from_numpy(kpts).to(dev)
+
+
+def _with_visibility(kpts):
+    """(B, K, 3) keypoints, as the batch holds them; [..., :2] is a strided view."""
+    return torch.cat([kpts, torch.full_like(kpts[..., :1], 7.0)], dim=-1)
 
 
 # bf16: the kernel and the plain version compute in f32 from the same bf16
@@ -191,11 +196,9 @@ def _heatmap_inputs(dev, b, k, dtype, seed):
 HM_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,k,sigma", [(1, 14, 3.0), (8, 14, 3.0), (8, 14, 1.0), (3, 19, 3.0)])
-def test_heatmap_mse_matches_plain(cuda, dtype, b, k, sigma):
-    pred, kpts = _heatmap_inputs(cuda, b, k, dtype, seed=b * 100 + k)
+def _check_heatmap_mse(pred, kpts, sigma=3.0):
+    """Loss and gradient through the kernels (one launch each) against the
+    plain versions: loss 1e-5 relative, the gradient HM_GRAD_TOL."""
     p = pred.clone().requires_grad_()
     before = (hm.heatmap_mse.launches, hm.heatmap_mse_backward.launches)
     loss = hm.heatmap_mse(p, kpts, 8, sigma)
@@ -204,27 +207,160 @@ def test_heatmap_mse_matches_plain(cuda, dtype, b, k, sigma):
     assert (hm.heatmap_mse.launches, hm.heatmap_mse_backward.launches) == (before[0] + 1, before[1] + 1)
     want = hm.heatmap_mse_reference(pred, kpts, 8, sigma)
     assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
-    g = torch.ones((), device=cuda)
+    g = torch.ones((), device=pred.device)
     want_grad = hm.heatmap_mse_backward_reference(pred, kpts, g, 8, sigma)
-    assert p.grad.dtype == dtype
-    assert _max_rel_err(p.grad, want_grad) < HM_GRAD_TOL[dtype]
+    assert p.grad.dtype == pred.dtype and p.grad.shape == pred.shape
+    assert _max_rel_err(p.grad, want_grad) < HM_GRAD_TOL[pred.dtype]
 
 
 @pytest.mark.cuda
-def test_heatmap_mse_is_deterministic(cuda):
-    pred, kpts = _heatmap_inputs(cuda, 32, 14, torch.float32, seed=7)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,k,sigma", [(1, 14, 3.0), (8, 14, 3.0), (8, 14, 1.0), (3, 19, 3.0)])
+def test_heatmap_mse_matches_plain(cuda, dtype, b, k, sigma):
+    pred, kpts = _heatmap_inputs(cuda, b, k, dtype, seed=b * 100 + k)
+    _check_heatmap_mse(pred, kpts, sigma)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w", [(45, 37), (16, 16), (8, 8)])
+@pytest.mark.parametrize("k", [13, 16, 19, 7])
+def test_heatmap_mse_matches_plain_at_batch_32(cuda, dtype, h, w, k):
+    """Penn Action, MPII, NTID and (the generic width) BBC joints at odd
+    and small heatmaps, whose tiles cross image boundaries."""
+    pred, kpts = _heatmap_inputs(cuda, 32, k, dtype, seed=h * w + k, h=h, w=w)
+    _check_heatmap_mse(pred, kpts, 3.0 if k != 13 else 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,h,w", [(torch.bfloat16, 46, 46), (torch.float32, 45, 37)])
+def test_heatmap_mse_reads_a_misaligned_batch_slice(cuda, dtype, h, w):
+    """pred[1:] starts 8 (bf16, 46x46) or 12 (f32, 45x37) bytes off a
+    16-byte boundary: the kernels peel its head and tail with scalar
+    accesses."""
+    full, kpts = _heatmap_inputs(cuda, 9, 14, dtype, seed=31, h=h, w=w)
+    pred = full[1:]
+    assert pred.data_ptr() % 16 == (8 if dtype == torch.bfloat16 else 12) and pred.is_contiguous()
+    _check_heatmap_mse(pred, kpts[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heatmap_mse_reads_strided_keypoints(cuda, dtype):
+    """The train step's (B, K, 3)[..., :2] view, read in place: the same
+    bits as the contiguous copy."""
+    pred, kpts = _heatmap_inputs(cuda, 8, 14, dtype, seed=32)
+    view = _with_visibility(kpts)[..., :2]
+    assert not view.is_contiguous()
+    _check_heatmap_mse(pred, view)
     g = torch.tensor(0.5, device=cuda)
-    a, b = hm.heatmap_mse(pred, kpts), hm.heatmap_mse(pred, kpts)
-    assert torch.equal(a, b)
+    assert torch.equal(hm.heatmap_mse(pred, view), hm.heatmap_mse(pred, kpts))
+    assert torch.equal(hm.heatmap_mse_backward(pred, view, g), hm.heatmap_mse_backward(pred, kpts, g))
+
+
+@pytest.mark.cuda
+def test_heatmap_mse_blocks_that_take_several_tiles(cuda, monkeypatch):
+    """On a card of 4 SMs the plan gives each block 17 tiles of batch 32."""
+    monkeypatch.setattr(hm, "_num_sms", lambda device: 4)
+    assert hm.tile_plan(32, 46, 46, 15, torch.float32, 4).tiles_per_block > 1
+    for dtype in (torch.float32, torch.bfloat16):
+        pred, kpts = _heatmap_inputs(cuda, 32, 14, dtype, seed=33)
+        _check_heatmap_mse(pred, kpts)
+
+
+def _heatmap_kernels_launched(fn):
+    """Names of the heatmap_mse kernels that ran on the card during fn()."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "heatmap_mse_" in e.name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heatmap_mse_is_one_kernel_a_call_each_way(cuda, dtype):
+    pred, kpts = _heatmap_inputs(cuda, 8, 14, dtype, seed=34)
+    g = torch.tensor(0.5, device=cuda)
+    hm.heatmap_mse(pred, kpts)  # built and warm
+    hm.heatmap_mse_backward(pred, kpts, g)
+    fwd = _heatmap_kernels_launched(lambda: hm.heatmap_mse(pred, kpts))
+    bwd = _heatmap_kernels_launched(lambda: hm.heatmap_mse_backward(pred, kpts, g))
+    assert len(fwd) == 1 and "heatmap_mse_fwd_kernel" in fwd[0], fwd
+    assert len(bwd) == 1 and "heatmap_mse_bwd_kernel" in bwd[0], bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heatmap_mse_graph_replays_match_eager(cuda, dtype):
+    """heatmap_mse(...).backward() captured once in a CUDA graph; three
+    replays, each on new pred values copied into the static input, give
+    the bits of the eager calls on those values."""
+    preds = [_heatmap_inputs(cuda, 8, 14, dtype, seed=35 + i)[0] for i in range(3)]
+    _, kpts = _heatmap_inputs(cuda, 8, 14, dtype, seed=35)
+    view = _with_visibility(kpts)[..., :2]
+    p = preds[0].clone().requires_grad_()
+
+    def step():
+        p.grad = None
+        loss = hm.heatmap_mse(p, view)
+        loss.backward()
+        return loss
+
+    eager = []
+    for x in preds:
+        with torch.no_grad():
+            p.copy_(x)
+        # detached: a kept autograd graph would hold p's AccumulateGrad node
+        # on this stream, and the captured backward would wait on it
+        eager.append((step().detach().clone(), p.grad.clone()))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    p.grad = None
+    with torch.cuda.graph(graph):
+        static_loss = hm.heatmap_mse(p, view)
+        static_loss.backward()
+    for x, (want_loss, want_grad) in zip(preds, eager):
+        with torch.no_grad():
+            p.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static_loss, want_loss)
+        assert torch.equal(p.grad, want_grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heatmap_mse_is_deterministic(cuda, dtype):
+    """Batch 32: 265 tile blocks, whose partial sums the reducer block adds
+    in index order; ten calls give one set of bits."""
+    pred, kpts = _heatmap_inputs(cuda, 32, 14, dtype, seed=7)
+    g = torch.tensor(0.5, device=cuda)
+    losses = [hm.heatmap_mse(pred, kpts) for _ in range(10)]
+    assert all(torch.equal(losses[0], x) for x in losses[1:])
     assert torch.equal(hm.heatmap_mse_backward(pred, kpts, g), hm.heatmap_mse_backward(pred, kpts, g))
 
 
 @pytest.mark.cuda
 def test_heatmap_mse_raises_on_what_it_does_not_take(cuda):
     pred, kpts = _heatmap_inputs(cuda, 2, 14, torch.float32, seed=8)
-    kpts3 = torch.cat([kpts, torch.ones_like(kpts[..., :1])], dim=-1)
+    # a strided (B, K, 3)[..., :2] view is read in place, the visibility skipped
+    assert torch.equal(hm.heatmap_mse(pred, _with_visibility(kpts)[..., :2]), hm.heatmap_mse(pred, kpts))
+    kpts4 = torch.cat([kpts, kpts], dim=-1)
+    with pytest.raises(ValueError, match="rows of 2 or 3"):
+        hm.heatmap_mse(pred, kpts4[..., :2])  # rows of 4 floats
+    with pytest.raises(ValueError, match="rows of 2 or 3"):
+        hm.heatmap_mse(pred, kpts.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError, match="contiguous"):
-        hm.heatmap_mse(pred, kpts3[..., :2])  # a strided view of (B, K, 3)
+        hm.heatmap_mse(pred.permute(0, 2, 1, 3), kpts)  # an NWHC view
     with pytest.raises(ValueError):
         hm.heatmap_mse(pred, kpts.cpu())
     with pytest.raises(ValueError):

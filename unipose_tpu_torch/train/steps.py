@@ -82,9 +82,8 @@ def make_train_step(
         out = _forward_nhwc(model, batch["image"])
         kpts = batch["kpts"]
         if fused_loss:
-            loss = heatmap_mse(
-                out.contiguous(), kpts[..., :2].contiguous(), spec.stride, spec.sigma
-            )
+            # the kernels read the (B, K, 3) rows in place: no copy of the keypoints
+            loss = heatmap_mse(out.contiguous(), kpts[..., :2], spec.stride, spec.sigma)
         else:
             loss = mse(out, make_targets(kpts, spec))
         optimizer.zero_grad(set_to_none=True)
