@@ -27,10 +27,12 @@ from __future__ import annotations
 import base64
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -40,7 +42,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from unipose_tpu_torch.cli import eval as cli_eval
 from unipose_tpu_torch.cli import serve
+from unipose_tpu_torch.cli import train as cli_train
 from unipose_tpu_torch.core.config import DATASETS, ModelConfig, TrainConfig
 from unipose_tpu_torch.data.synthetic import make_loaders
 from unipose_tpu_torch.eval.video import make_stream_step, stream_video, stream_video_scan
@@ -104,6 +108,8 @@ STEM_MAIN = (torch.bfloat16, 1, 368, 368)  # the image request's stem
 VIDEO = dict(dataset="Penn_Action", num_classes=13, variant="lstm")  # BASELINE config 3
 VIDEO_FRAMES = 20
 CHUNK = 5
+TRAIN_CLI_IMAGES = (64, 20)  # LSPET train JPGs, LSP val JPGs (the last val batch of 8 ragged)
+TRAIN_CLI_SIDES = (160, 400)  # image sides drawn from this range, px
 
 
 def emit(obj) -> None:
@@ -907,11 +913,42 @@ def heatmap_graph_row(dtype, rng, dev, gpu, flush) -> dict:
     row = {"phase": "kernel", "name": "heatmap_mse graph", "dtype": str(dtype), "shape": list(p.shape),
            "replays": len(same), "bit_identical_to_eager": same,
            "eager_forward_backward_ms": eager_ms, "replay_ms": time_ms(graph.replay, 20, flush),
-           "gpu": gpu}
+           "two_shape_bit_identical": heatmap_two_shape_graph(dtype, rng, dev), "gpu": gpu}
     emit(row)
-    if not all(same):
+    if not (all(same) and all(row["two_shape_bit_identical"])):
         raise AssertionError(f"the captured heatmap_mse differs from the eager calls: {row}")
     return row
+
+
+def heatmap_two_shape_graph(dtype, rng, dev) -> list:
+    """The forward at the main shape warmed up eagerly on a stream and
+    captured there; then an eager forward at batch 32 on that stream, whose
+    tile plan needs more partial-sum slots, and new tensors that could take
+    freed memory; then three replays.  Returns, for each replay and then for
+    the batch-32 call, whether its bits equal an eager call's."""
+    _, b, k, sigma = HM_MAIN
+    small, kpts = _heatmap_inputs(rng, b, 46, 46, k, dtype, dev)
+    big, big_kpts = _heatmap_inputs(rng, 32, 46, 46, k, dtype, dev)
+    want = hm.heatmap_mse(small, kpts, 8, sigma).clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        hm.heatmap_mse(small, kpts, 8, sigma)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        static_loss = hm.heatmap_mse(small, kpts, 8, sigma)
+    same = []
+    with torch.cuda.stream(stream):
+        big_loss = hm.heatmap_mse(big, big_kpts, 8, sigma).clone()
+        litter = [torch.full((4096,), -1, dtype=torch.int64, device=dev) for _ in range(64)]
+        for _ in range(3):
+            static_loss.zero_()
+            graph.replay()
+            stream.synchronize()
+            same.append(bool(torch.equal(static_loss, want)))
+    same.append(bool(torch.equal(big_loss, hm.heatmap_mse(big, big_kpts, 8, sigma))))
+    del litter
+    return same
 
 
 def phase_heatmap_kernel(dev, gpu: str, flush: torch.Tensor) -> dict:
@@ -1062,6 +1099,145 @@ def phase_train(dev, gpu: str, loaders, dtype: torch.dtype) -> dict:
     return counts
 
 
+def write_lsp_root(root: str, mode: str, n: int, seed: int) -> str:
+    """An LSPET (``mode="lspet"``: joints.mat (14, 3, N)) or LSP (``"lsp"``:
+    (3, 14, N), its third row an occlusion flag) root of ``n`` JPGs whose
+    sides are drawn from TRAIN_CLI_SIDES, with joints inside each image."""
+    import cv2
+    import scipy.io
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "images"))
+    hs, ws = (rng.randint(TRAIN_CLI_SIDES[0], TRAIN_CLI_SIDES[1] + 1, n) for _ in range(2))
+    for i in range(n):
+        cv2.imwrite(os.path.join(root, "images", f"im{i + 1:05d}.jpg"),
+                    rng.randint(0, 256, (hs[i], ws[i], 3)).astype(np.uint8))
+    xs, ys = rng.uniform(4, ws - 4, (14, n)), rng.uniform(4, hs - 4, (14, n))
+    vis = rng.randint(0, 2, (14, n))
+    joints = np.stack([xs, ys, vis]) if mode == "lsp" else np.stack([xs, ys, vis], axis=1)
+    scipy.io.savemat(os.path.join(root, "joints.mat"), {"joints": joints})
+    return root
+
+
+def trace_idle_share(path: str) -> dict:
+    """From a torch.profiler Chrome trace of ``Trainer.training``: the
+    window of the steps (from the first event to the start of the
+    ``checkpoint_save`` span), the card's busy time in it (kernels, copies
+    and sets) and the share of that window in which the card ran none of
+    them; and the same over the whole trace, the checkpoint's snapshot
+    included."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    save = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == "checkpoint_save"]
+    steps_end = save[0]["ts"] if save else end
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+    def busy(lo, hi):
+        return sum(max(0, min(e["ts"] + e["dur"], hi) - max(e["ts"], lo)) for e in device)
+
+    return {"steps_window_ms": (steps_end - start) / 1e3,
+            "steps_device_busy_ms": busy(start, steps_end) / 1e3,
+            "idle_share": 1 - busy(start, steps_end) / (steps_end - start),
+            "checkpoint_save_ms": save[0]["dur"] / 1e3 if save else None,
+            "trace_window_ms": (end - start) / 1e3, "trace_device_busy_ms": busy(start, end) / 1e3,
+            "trace_idle_share": 1 - busy(start, end) / (end - start), "device_events": len(device)}
+
+
+def _states_equal(got: dict, want: dict) -> bool:
+    """Two TrainState.state_dict()s bit for bit (tensors compared on the
+    host): model, Adam's moments and counts, scheduler, generator, step."""
+    same = lambda a, b: torch.equal(a.detach().cpu(), b.detach().cpu())  # noqa: E731
+    return (got["step"] == want["step"] and got["scheduler"] == want["scheduler"]
+            and same(got["generator"], want["generator"])
+            and sorted(got["model"]) == sorted(want["model"])
+            and all(same(got["model"][k], v) for k, v in want["model"].items())
+            and got["optimizer"]["param_groups"] == want["optimizer"]["param_groups"]
+            and all(same(got["optimizer"]["state"][k][n], t)
+                    for k, v in want["optimizer"]["state"].items() for n, t in v.items()))
+
+
+def phase_train_cli(gpu: str) -> dict:
+    """The training CLI on LSP files: ``cli/train.main`` (full width, f32,
+    368x368, batch 8) on an LSPET root of 64 JPGs and an LSP root of 20 for
+    two epochs (checkpoints at steps 8 and 16), with the launch counts set
+    to 0 just before and read just after, the second epoch traced; the
+    loader iterated alone for an epoch; a second run over the checkpoint
+    directory, whose restored state must equal the saved step 16 bit for
+    bit, for one epoch (epoch 3: warm and not traced); ``cli/eval.main``
+    over the directory, whose mAP must equal the resumed trainer's.
+    Returns the launch counts of the first run."""
+    with tempfile.TemporaryDirectory(prefix="unipose_train_cli_") as tmp:
+        train_dir = write_lsp_root(os.path.join(tmp, "lspet"), "lspet", TRAIN_CLI_IMAGES[0], seed=21)
+        val_dir = write_lsp_root(os.path.join(tmp, "lsp"), "lsp", TRAIN_CLI_IMAGES[1], seed=22)
+        ckpt, trace_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "trace")
+        argv = ["--dataset", "LSP", "--train_dir", train_dir, "--val_dir", val_dir,
+                "--batch_size", str(TRAIN_BATCH), "--checkpoint_dir", ckpt,
+                "--model_name", os.path.join(tmp, "unipose")]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        first = cli_train.main(argv + ["--epochs", "2", "--profile_dir", trace_dir, "--profile_epoch", "1"])
+        path_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        steps, kept = first.state.step, sorted(os.listdir(ckpt), key=int)
+        route = "native" if type(first.train_loader).__name__.startswith("_Native") else "python"
+        loader = first.train_loader
+        loader.set_epoch(2)
+        t0 = time.perf_counter()
+        images = sum(len(b["image"]) for b in loader)
+        loader_s = time.perf_counter() - t0
+        e1, e2 = first.epoch_times[0], first.epoch_times[1]
+        snapshot_ms, write_ms = first.ckpt_manager.snapshot_ms, first.ckpt_manager.write_ms
+        idle = trace_idle_share(os.path.join(trace_dir, "trace.json"))
+        del first, loader
+        torch.cuda.empty_cache()
+
+        args = cli_train.build_argparser().parse_args(argv + ["--epochs", "1"])
+        second = cli_train.make_trainer(args)
+        saved = torch.load(os.path.join(ckpt, kept[-1]), map_location="cpu", weights_only=True)
+        start_step = second.state.step
+        resumed_equal = _states_equal(second.state.state_dict(), saved)
+        del saved
+        cli_train.run(second, args)
+        end_step, e3 = second.state.step, second.epoch_times[0]
+        # the two validations below must pick the same cuDNN algorithms
+        torch.backends.cudnn.deterministic = True
+        try:
+            trainer_map = second.validation(1)
+            del second
+            torch.cuda.empty_cache()
+            eval_map = cli_eval.main(["--dataset", "LSP", "--val_dir", val_dir, "--checkpoint_dir", ckpt])
+        finally:
+            torch.backends.cudnn.deterministic = False
+        torch.cuda.empty_cache()
+    row = {"phase": "train_cli", "data_route": route, "dtype": "torch.float32", "batch": TRAIN_BATCH,
+           "input": 368, "images": list(TRAIN_CLI_IMAGES), "image_sides_px": list(TRAIN_CLI_SIDES),
+           "path_s": path_s, "launches": counts, "steps": steps, "checkpoints": kept,
+           "loader_images_per_s": images / loader_s, "loader_epoch_images": images,
+           "epoch1_step_ms": e1["seconds"] / e1["steps"] * 1e3,
+           "epoch2_step_ms": e2["seconds"] / e2["steps"] * 1e3,
+           "epoch2_images_per_s": e2["steps"] * TRAIN_BATCH / e2["seconds"], "epoch2_traced": True,
+           **{f"epoch{i}_{k}_ms_per_step": e[f"{k}_s"] / e["steps"] * 1e3
+              for i, e in ((1, e1), (2, e2), (3, e3)) for k in ("loader_wait", "upload")},
+           "epoch3_step_ms": e3["seconds"] / e3["steps"] * 1e3,
+           "epoch3_images_per_s": e3["steps"] * TRAIN_BATCH / e3["seconds"], "epoch3_traced": False,
+           "epoch2_profile": idle, "checkpoint_snapshot_ms": snapshot_ms,
+           "checkpoint_write_ms": write_ms, "resume_start_step": start_step,
+           "resume_bit_identical": resumed_equal, "resume_end_step": end_step,
+           "trainer_mAP": trainer_map, "eval_mAP": eval_map, "gpu": gpu}
+    emit(row)
+    steps_per_epoch = TRAIN_CLI_IMAGES[0] // TRAIN_BATCH
+    ok = (steps == 2 * steps_per_epoch and kept == [str(steps_per_epoch), str(steps)]
+          and counts["heatmap_mse"] == steps and counts["heatmap_mse_backward"] == steps
+          and counts["wasp_cascade"] > 0 and counts["fused_stem"] > 0
+          and start_step == steps and resumed_equal and end_step == steps + steps_per_epoch
+          and eval_map == trainer_map and 0.0 <= eval_map <= 1.0)
+    if not ok:
+        raise AssertionError(f"the training CLI failed its checks: {row}")
+    return counts
+
+
 def _check_image_keypoints(replies) -> None:
     for r in replies:
         k = np.asarray(r["keypoints"])
@@ -1125,6 +1301,7 @@ def main() -> int:
     train_counts = {str(dt): phase_train(dev, gpu, loaders, dt) for dt in (torch.float32, torch.bfloat16)}
     phase_learning(dev, loaders)
     del loaders
+    paths["train_cli"] = phase_train_cli(gpu)
     video_state = phase_video(dev, gpu)
     paths["video_stream"] = phase_video_stream(dev, gpu, video_state, flush)
     video_serve = phase_serve_video(gpu)
@@ -1168,7 +1345,8 @@ def main() -> int:
             "source": "unipose_tpu_torch/csrc/heatmap_mse.cu",
             "replaces": replaces[name],
             "launches": main_train[name],
-            "launches_by_path": {f"train {k}": v[name] for k, v in train_counts.items()},
+            "launches_by_path": {**{f"train {k}": v[name] for k, v in train_counts.items()},
+                                 "train_cli": paths["train_cli"][name]},
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

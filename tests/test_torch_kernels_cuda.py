@@ -339,6 +339,36 @@ def test_heatmap_mse_graph_replays_match_eager(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heatmap_mse_graph_outlives_a_larger_eager_call(cuda, dtype):
+    """A forward at batch 8 warmed up eagerly on a stream (its slots made
+    there) and captured on it, then an eager forward at batch 32 on that
+    stream, whose plan needs more slots, then new tensors that could take
+    freed memory: the replays still give the bits of an eager call at batch
+    8, and the eager call at 32 those of a fresh one."""
+    small, kpts = _heatmap_inputs(cuda, 8, 14, dtype, seed=41)
+    big, big_kpts = _heatmap_inputs(cuda, 32, 14, dtype, seed=42)
+    want = hm.heatmap_mse(small, kpts).clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        assert torch.equal(hm.heatmap_mse(small, kpts), want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        static_loss = hm.heatmap_mse(small, kpts)
+    with torch.cuda.stream(stream):
+        big_loss = hm.heatmap_mse(big, big_kpts).clone()
+        litter = [torch.full((4096,), -1, dtype=torch.int64, device=cuda) for _ in range(64)]
+        for _ in range(3):
+            static_loss.zero_()
+            graph.replay()
+            stream.synchronize()
+            assert torch.equal(static_loss, want)
+    assert torch.equal(big_loss, hm.heatmap_mse(big, big_kpts))
+    del litter
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_heatmap_mse_is_deterministic(cuda, dtype):
     """Batch 32: 265 tile blocks, whose partial sums the reducer block adds
     in index order; ten calls give one set of bits."""

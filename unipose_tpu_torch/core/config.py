@@ -1,11 +1,13 @@
 """Configuration layer: dataset specs, the model config and the image
-training recipe.
+training recipe, the presets and the YAML loader.
 
 Counterpart of ``unipose_tpu/core/config.py``.  The dataset specs are copied
 as they are; ``ModelConfig`` holds the image and video models' fields, with
-``compute_dtype`` a ``torch.dtype``; ``TrainConfig`` holds the image
-training fields.  The video-training, parallelism and checkpoint-manager
-fields arrive with the slices that use them.
+``compute_dtype`` a ``torch.dtype``; ``TrainConfig`` holds the training
+fields that the port reads.  The parallelism fields (``sync_bn``,
+``mesh_shape``, ``mesh_axes``, ``donate_state``, ``spmd_axes``) and the
+rematerialisation fields arrive with the slices that use them; the presets
+carry every field the port's configs have.
 """
 
 from __future__ import annotations
@@ -178,13 +180,15 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Image training recipe (Reference: unipose.py:46-56).  The batch
-    size is the loaders' (``make_loaders(batch_size=)``); the epoch count
-    and validation batch arrive with ``cli/train.py``, which reads them."""
+    """Image training recipe (Reference: unipose.py:46-56)."""
 
+    batch_size: int = 8
     lr: float = 1e-4
     gamma: float = 0.333
     step_size: int = 13275
+    epochs: int = 100
+    # Loader threads of the Python data route (data/loader.py).
+    workers: int = 1
     # Target-rendering overrides; None means the dataset spec's value (see
     # ``effective_spec``).
     sigma: Optional[float] = None
@@ -192,8 +196,14 @@ class TrainConfig:
     seed: int = 0
     # Linear LR warmup over the first N updates (0 = off, the reference).
     warmup_steps: int = 0
+    # Periodic checkpoints (one an epoch) and auto-resume from the newest
+    # (train/checkpoint.py::CheckpointManager); None writes none.
+    checkpoint_dir: Optional[str] = None
     # ``<model_name>_best`` is the best-mAP checkpoint; "" writes none.
     model_name: str = "unipose"
+    # Validation forward batch size.  The reference validates at batch 1
+    # (unipose.py:64); the metrics stay per frame whatever it is.
+    val_batch_size: int = 8
 
 
 def effective_spec(spec: DatasetSpec, train: TrainConfig) -> DatasetSpec:
@@ -206,3 +216,93 @@ def effective_spec(spec: DatasetSpec, train: TrainConfig) -> DatasetSpec:
     if train.stride is not None:
         overrides["stride"] = int(train.stride)
     return dataclasses.replace(spec, **overrides) if overrides else spec
+
+
+# ---------------------------------------------------------------------------
+# The five BASELINE.json presets
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Preset:
+    name: str
+    description: str
+    model: ModelConfig
+    train: TrainConfig
+
+
+PRESETS = {
+    # 1. UniPose ResNet-101+WASP single-image inference on LSP
+    "lsp_infer": Preset(
+        name="lsp_infer",
+        description="UniPose single-image inference on LSP (368x368, batch 1, 14 joints)",
+        model=ModelConfig(dataset="LSP", num_classes=14),
+        train=TrainConfig(batch_size=1, sigma=3.0),
+    ),
+    # 2. MPII single-person training recipe
+    "mpii_train": Preset(
+        name="mpii_train",
+        description="MPII single-person training (16 joints, Gaussian targets, aug)",
+        model=ModelConfig(dataset="MPII", num_classes=16),
+        train=TrainConfig(batch_size=8, sigma=3.0, model_name="unipose_mpii"),
+    ),
+    # 3. UniPose-LSTM on Penn Action
+    "penn_lstm": Preset(
+        name="penn_lstm",
+        description="UniPose-LSTM on Penn Action (5-frame ConvLSTM rollout)",
+        model=ModelConfig(
+            dataset="Penn_Action", num_classes=13, variant="lstm", frame_memory=5
+        ),
+        train=TrainConfig(batch_size=1, sigma=1.0, model_name="uniposeLSTM_penn"),
+    ),
+    # 4. BBC Pose video eval
+    "bbc_lstm": Preset(
+        name="bbc_lstm",
+        description="BBC Pose video eval (7 joints, long sequences through the LSTM scan)",
+        model=ModelConfig(dataset="BBC", num_classes=7, variant="lstm", frame_memory=5),
+        train=TrainConfig(batch_size=1, sigma=1.0, model_name="uniposeLSTM_bbc"),
+    ),
+    # 5. Batched multi-clip training, bf16 (the JAX preset's sync_bn and
+    # mesh_shape wait for the parallelism slice)
+    "multichip_video": Preset(
+        name="multichip_video",
+        description="Multi-clip video training, GSPMD data-parallel, bf16",
+        model=ModelConfig(
+            dataset="Penn_Action",
+            num_classes=13,
+            variant="lstm",
+            frame_memory=5,
+            compute_dtype=torch.bfloat16,
+        ),
+        train=TrainConfig(batch_size=32, sigma=1.0, model_name="uniposeLSTM_multichip"),
+    ),
+}
+
+
+def get_preset(name: str) -> Preset:
+    try:
+        return PRESETS[name]
+    except KeyError:
+        raise KeyError(
+            f"Unknown preset {name!r}; available: {sorted(PRESETS)}"
+        ) from None
+
+
+def load_yaml_config(path: str) -> Preset:
+    """YAML -> (ModelConfig, TrainConfig) preset: top-level keys ``preset``
+    (optional base), ``model`` and ``train`` override preset fields.  A key
+    that the port's dataclasses lack raises (``dataclasses.replace``).
+    PyYAML is imported here only: nothing on the card's path reads YAML."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    base = get_preset(raw["preset"]) if "preset" in raw else PRESETS["lsp_infer"]
+    model = dataclasses.replace(base.model, **raw.get("model", {}))
+    train = dataclasses.replace(base.train, **raw.get("train", {}))
+    return Preset(
+        name=raw.get("name", base.name),
+        description=raw.get("description", base.description),
+        model=model,
+        train=train,
+    )

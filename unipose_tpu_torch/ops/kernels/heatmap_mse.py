@@ -14,14 +14,15 @@ Each direction is one launch.  The call path allocates only its result
 (the 0-dim loss, or dpred): the forward's scratch (a slot a block for its
 partial sum, which the kernel leaves empty) is held per (device, stream),
 so that the path can be captured by a CUDA graph and replayed.  A graph's
-replays use the scratch of the stream it was captured on.
+replays use the scratch of the stream it was captured on, which is never
+freed.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -166,17 +167,23 @@ def _num_sms(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-# (device, stream) -> the forward's partial-sum slots
-_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+# (device, stream) -> the forward's partial-sum slots, smallest first.  No
+# slots are ever freed: a CUDA graph keeps writing and polling the slots it
+# was captured with, so a plan that needs more adds a larger tensor and the
+# old ones stay alive.  Slots made inside a capture are zeroed only when the
+# graph replays, so they go to _captured, which eager calls never take from.
+_scratch: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+_captured: List[torch.Tensor] = []
 
 
 def _forward_slots(device: torch.device, stream: int, partials: int) -> torch.Tensor:
-    """The forward's slots on ``stream``, zeroed when they are made (the
-    kernel leaves them at 0) and grown as needed."""
-    slots = _scratch.get((device.index, stream))
-    if slots is None or slots.numel() < partials:
-        slots = _scratch[(device.index, stream)] = torch.zeros(
-            partials, dtype=torch.int64, device=device)
+    """The forward's slots on ``stream``: zeroed when they are made (the
+    kernel leaves them at 0), and never freed."""
+    held = _scratch.setdefault((device.index, stream), [])
+    if held and held[-1].numel() >= partials:
+        return held[-1]
+    slots = torch.zeros(partials, dtype=torch.int64, device=device)
+    (_captured if torch.cuda.is_current_stream_capturing() else held).append(slots)
     return slots
 
 

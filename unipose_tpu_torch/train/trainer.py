@@ -2,17 +2,19 @@
 
 Counterpart of ``unipose_tpu/train/trainer.py`` (Reference: unipose.py:
 37-193):
+  * the dataset loaders from ``train_dir``/``val_dir`` (``get_dataloader``);
   * per-update step-decay LR (the scheduler in the train state);
   * per-epoch validation with AP/PCK/PCKh accumulated with per-joint
     visibility gating (unipose.py:163-176);
   * best-mAP checkpoint to ``<model_name>_best`` (unipose.py:183-186);
+  * a checkpoint an epoch to ``checkpoint_dir``, and auto-resume from the
+    newest one;
+  * a TSV metric log and the parameter summary;
   * optional warm start from a reference ``*.pth.tar`` (unipose.py:78-90).
 
 One deliberate difference: the train step runs the fused loss
 (``heatmap_mse``, the same function as the materialised MSE, whose targets
 never exist in memory), where the JAX ``Trainer`` builds its step without it.
-Real dataset loaders arrive with the data slice: pass ``loaders``, for
-example ``data/synthetic.py::make_loaders``.
 """
 
 from __future__ import annotations
@@ -23,12 +25,20 @@ from typing import Optional
 import numpy as np
 import torch
 
+from unipose_tpu_torch import resolve_device
 from unipose_tpu_torch.core.config import DATASETS, ModelConfig, TrainConfig, effective_spec
+from unipose_tpu_torch.data.loader import get_dataloader
 from unipose_tpu_torch.eval.metrics import accuracy_from_coords
 from unipose_tpu_torch.eval.report import print_accuracies
-from unipose_tpu_torch.train.checkpoint import save_checkpoint, warm_start_from_torch
+from unipose_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    save_checkpoint,
+    warm_start_from_torch,
+)
 from unipose_tpu_torch.train.state import create_train_state
 from unipose_tpu_torch.train.steps import make_train_step, make_val_step
+from unipose_tpu_torch.utils.logger import Logger
+from unipose_tpu_torch.utils.summary import count_params, per_module_params
 
 _KEEP = ("image", "kpts")
 
@@ -38,28 +48,52 @@ class Trainer:
         self,
         model_config: ModelConfig,
         train_config: TrainConfig,
-        *,
+        train_dir: Optional[str] = None,
+        val_dir: Optional[str] = None,
         pretrained: Optional[str] = None,
+        *,
         log_every: int = 50,
         spec=None,
         loaders=None,
+        log_file: Optional[str] = None,
+        print_summary: bool = False,
         device=None,
     ):
-        """``loaders``: (train, val[, test]) with the loader protocol
-        (``__len__``, ``set_epoch``, ``__iter__`` of numpy batches,
-        ``batch_size``).  Runs on the card unless ``device="cpu"``."""
+        """``spec``/``loaders`` override what derives from
+        ``model_config.dataset``; ``loaders`` is (train, val[, test]) with
+        the loader protocol (``__len__``, ``set_epoch``, ``__iter__`` of
+        numpy batches, ``batch_size``).  Runs on the card unless
+        ``device="cpu"``."""
         self.model_config = model_config
         self.train_config = train_config
+        # TrainConfig.sigma/stride resolve into the spec here; the loaders
+        # and the steps read the spec only.
         self.spec = effective_spec(spec or DATASETS[model_config.dataset], train_config)
-        if self.spec.is_video:
-            raise NotImplementedError(f"{self.spec.name} is a video dataset: the video slice")
-        if loaders is None:
+        if self.spec.is_video or model_config.variant == "lstm":
             raise NotImplementedError(
-                "the dataset loaders arrive with the data slice; pass loaders="
-                "unipose_tpu_torch.data.synthetic.make_loaders(...)"
+                f"{self.spec.name} / {model_config.variant}: video training is "
+                "ROADMAP.md Queue 1 item 4"
             )
-        self.train_loader, self.val_loader = loaders[0], loaders[1]
+        device = resolve_device(device)
         self.log_every = log_every
+
+        if loaders is not None:
+            self.train_loader, self.val_loader = loaders[0], loaders[1]
+        elif train_dir or val_dir:
+            self.train_loader, self.val_loader, _ = get_dataloader(
+                model_config.dataset,
+                train_dir,
+                val_dir,
+                self.spec.sigma,
+                self.spec.stride,
+                train_config.workers,
+                train_config.batch_size,
+                seed=train_config.seed,
+                val_batch_size=train_config.val_batch_size,
+                input_size=self.spec.input_size,
+            )
+        else:
+            self.train_loader = self.val_loader = None
 
         self.model, self.optimizer, self.state = create_train_state(
             model_config, train_config, train_config.seed, device
@@ -67,6 +101,14 @@ class Trainer:
         self.device = next(self.model.parameters()).device
         if pretrained:
             warm_start_from_torch(self.state, pretrained)
+
+        # auto-resume from the newest periodic checkpoint
+        self.ckpt_manager = None
+        if train_config.checkpoint_dir:
+            self.ckpt_manager = CheckpointManager(train_config.checkpoint_dir)
+            if self.ckpt_manager.restore_latest(self.state) is not None:
+                print(f"resumed from step {self.state.step} ({train_config.checkpoint_dir})")
+
         self.train_step = make_train_step(self.model, self.optimizer, self.spec, fused_loss=True)
         self.val_step = make_val_step(self.model, self.spec)
 
@@ -74,6 +116,24 @@ class Trainer:
         self.best_pck = 0.0
         self.best_pckh = 0.0
         self.model_name = train_config.model_name
+
+        # TSV metric log (counterpart of extra_utils/logger.py)
+        self.logger = None
+        if log_file:
+            self.logger = Logger(log_file, title=self.model_name)
+            self.logger.set_names(["epoch", "train_loss", "mAP", "mPCK", "mPCKh"])
+        self._epoch_stats = {}
+        # epoch -> host timestamps of training(epoch): seconds until its last
+        # loss reached the host, steps, and the seconds spent waiting for
+        # the loader and in the (synchronous) upload
+        self.epoch_times = {}
+
+        if print_summary:
+            # parameter audit (counterpart of get_model_summary,
+            # utils/utils.py:713-829, called at unipose.py:96-98)
+            print(f"Total Parameters: {count_params(self.model):,}")
+            for name, n in sorted(per_module_params(self.model).items()):
+                print(f"  {name:<12} {n:>14,}")
 
     # ------------------------------------------------------------------
     def _device_batch(self, batch):
@@ -86,28 +146,47 @@ class Trainer:
         pending = []
         train_loss = 0.0
         n = 0
-        t0 = time.time()
+        waited = uploaded = 0.0  # host seconds in next(loader) and in the upload
+        t0 = time.perf_counter()
         self.train_loader.set_epoch(epoch)
-        for i, batch in enumerate(self.train_loader):
-            metrics = self.train_step(self.state, self._device_batch(batch))
+        batches = iter(self.train_loader)
+        while True:
+            t1 = time.perf_counter()
+            batch = next(batches, None)
+            t2 = time.perf_counter()
+            if batch is None:
+                break
+            device_batch = self._device_batch(batch)
+            waited, uploaded = waited + t2 - t1, uploaded + time.perf_counter() - t2
+            metrics = self.train_step(self.state, device_batch)
             pending.append(metrics["loss"])
             n += 1
-            if (i + 1) % self.log_every == 0:
+            if n % self.log_every == 0:
                 train_loss += torch.stack(pending).sum().item()  # one sync
                 pending = []
-                rate = n / (time.time() - t0)
+                rate = n / (time.perf_counter() - t0)
                 print(
-                    f"  iter {i + 1}/{len(self.train_loader)} "
+                    f"  iter {n}/{len(self.train_loader)} "
                     f"loss {train_loss / n:.6f} ({rate:.2f} it/s)"
                 )
         if pending:
             train_loss += torch.stack(pending).sum().item()
-        return train_loss / max(n, 1)
+        self.epoch_times[epoch] = {"seconds": time.perf_counter() - t0, "steps": n,
+                                   "loader_wait_s": waited, "upload_s": uploaded}
+        if self.ckpt_manager is not None:
+            with torch.profiler.record_function("checkpoint_save"):  # a span in traces
+                self.ckpt_manager.save(self.state.step, self.state)
+        avg = train_loss / max(n, 1)
+        self._epoch_stats[epoch] = avg
+        return avg
 
     def finalize(self) -> None:
-        """Wait for the work queued on the device (call before exit)."""
+        """Wait for the work queued on the device, then for in-flight
+        checkpoint writes to commit (call before exit)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self.ckpt_manager is not None:
+            self.ckpt_manager.wait()
 
     # ------------------------------------------------------------------
     def _device_batch_padded(self, batch, pad_to):
@@ -182,4 +261,8 @@ class Trainer:
             "Best AP = %.2f%%; PCK = %2.2f%%; PCKh = %2.2f%%"
             % (self.is_best * 100, self.best_pck * 100, self.best_pckh * 100)
         )
+        if self.logger is not None:
+            self.logger.append(
+                [epoch, self._epoch_stats.get(epoch, float("nan")), mAP, mPCK, mPCKh]
+            )
         return mAP
