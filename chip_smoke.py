@@ -15,8 +15,15 @@ in-process, answering concurrent requests (``fused_stem``,
 validation); a fresh Trainer taking ten steps on one batch, which must
 lower the loss; the full-width UniPose-LSTM (Penn Action 13 joints,
 5-frame chunks) against its plain twin and the committed JAX golden
-stream, streaming a 20-frame video; and the video server answering
-concurrent clips and streams.  Prints one JSON object a phase, a
+stream, streaming a 20-frame video; the video server answering
+concurrent clips and streams; the video train step through
+``heatmap_mse`` over the B*T frames against the plain loss; video steps
+with and without ``remat_tower``; ``cli/train.py --model_arch
+uniposeLSTM`` on Penn Action files (checkpoints, resume, ``cli/eval.py``);
+ten bf16 video steps on one clip, which must lower the loss; the BBC
+long-video evaluation (a 40-frame video streamed in 5-frame chunks, per
+frame PCK); and the demo (``cli/demo.py``, ``Trainer.test`` of the video
+model).  Prints one JSON object a phase, a
 ``kernels`` line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA card or any phase fails.
@@ -25,6 +32,7 @@ when there is no CUDA card or any phase fails.
 from __future__ import annotations
 
 import base64
+import contextlib
 import dataclasses
 import json
 import os
@@ -38,15 +46,24 @@ import time
 import urllib.request
 from pathlib import Path
 
-import numpy as np
-import torch
+# cuBLAS is deterministic only with a fixed workspace; video_remat runs
+# under torch.use_deterministic_algorithms, which refuses cuBLAS calls
+# without it.  The size is PyTorch's own default on Hopper (8 x 4 MiB).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 import torch.nn.functional as F
 
+from unipose_tpu_torch.cli import demo as cli_demo
 from unipose_tpu_torch.cli import eval as cli_eval
 from unipose_tpu_torch.cli import serve
 from unipose_tpu_torch.cli import train as cli_train
 from unipose_tpu_torch.core.config import DATASETS, ModelConfig, TrainConfig
+from unipose_tpu_torch.data.bbc import BBCDataset
+from unipose_tpu_torch.data.fixtures import write_bbc_root, write_penn_root
 from unipose_tpu_torch.data.synthetic import make_loaders
+from unipose_tpu_torch.eval.metrics import accuracy
 from unipose_tpu_torch.eval.video import make_stream_step, stream_video, stream_video_scan
 from unipose_tpu_torch.models.unipose import (
     build_model,
@@ -56,13 +73,15 @@ from unipose_tpu_torch.models.unipose import (
 )
 from unipose_tpu_torch.ops import kernels
 from unipose_tpu_torch.ops.heatmap import render_targets
+from unipose_tpu_torch.models import decoder as decoder_module
+from unipose_tpu_torch.models import resnet as resnet_module
 from unipose_tpu_torch.models.resnet import ResNet101
 from unipose_tpu_torch.ops.kernels import build
 from unipose_tpu_torch.ops.kernels import fused_stem as fs
 from unipose_tpu_torch.ops.kernels import heatmap_mse as hm
 from unipose_tpu_torch.ops.kernels import wasp_cascade as wc
 from unipose_tpu_torch.train.state import create_train_state
-from unipose_tpu_torch.train.steps import make_train_step, mse, preprocess_images
+from unipose_tpu_torch.train.steps import make_targets, make_train_step, mse, preprocess_images
 from unipose_tpu_torch.train.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent
@@ -79,6 +98,10 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DILATIONS = {23: (18, 12, 6), 46: (36, 24, 12), 8: (18, 12, 6)}  # OS16, OS8, taps skipped
 MAIN_CASE = (torch.bfloat16, 23, 1)  # the serving path: bf16, 368x368 OS16
 KERNEL_BATCHES = (1, 32)
+# the video paths' WASP batches: a 5-frame chunk (video_stream,
+# bbc_stream_eval), a 20-frame rollout (video_stream's f32 check) and a
+# validation batch (8 clips of 5 frames, the last batch padded: train_video_cli)
+VIDEO_KERNEL_BATCHES = (5, 20, 40)
 MODEL_BATCHES = (1, 32)
 MODEL_PAIRS = 20
 
@@ -110,6 +133,24 @@ VIDEO_FRAMES = 20
 CHUNK = 5
 TRAIN_CLI_IMAGES = (64, 20)  # LSPET train JPGs, LSP val JPGs (the last val batch of 8 ragged)
 TRAIN_CLI_SIDES = (160, 400)  # image sides drawn from this range, px
+# heatmap_mse on the video paths: BBC's 7 joints (no instantiation of its
+# own: the generic body), and the video train step's call, a (1, 5) Penn
+# Action clip flattened to (5, 46, 46, 14), sigma 1, keypoints read as the
+# strided (5, 13, 3)[..., :2] view of the clip's rows
+HM_GENERIC = ((5, 7, 1.0), (8, 7, 3.0))
+HM_VIDEO_STEP = (1, CHUNK, 13, 1.0)
+VIDEO_REMAT_FRAMES = (CHUNK, 20)  # rollouts of one clip, with and without remat_tower
+# remat_tower against the plain step, both under deterministic_steps: the
+# same bits (the plain step against itself, and remat against it, read 0.0
+# at T = 5 and 20), where a recompute in TF32 reads 0.16-0.17.  Under
+# default algorithms two plain steps already read 2-4e-5 apart (cuDNN's and
+# F.interpolate's backward add in a varying order), which is why the
+# comparison is made deterministic rather than held to a tolerance.
+REMAT_GRAD_TOL = 0.0
+VIDEO_CLI_CLIPS = (8, 4)  # Penn Action train clips, val clips
+VIDEO_CLI_FRAMES = 7  # frames a clip (a 5-frame window drawn from each)
+VIDEO_CLI_SIDES = (240, 480)  # frame sides drawn from this range, px (Penn's are 270-480)
+BBC_FRAMES = 40  # one BBC video, streamed in CHUNK-frame chunks
 
 
 def emit(obj) -> None:
@@ -349,51 +390,60 @@ def unfused_wasp(folded: dict, dtype: torch.dtype, dilations):
 def phase_kernel(dev, gpu: str, flush: torch.Tensor) -> dict:
     """wasp_cascade against wasp_cascade_reference on the card, with the
     unfused cuBLAS/cuDNN version timed beside it; two calls must give the
-    same bits.  Device time per call at bf16 S = 23, batch 1 and 32."""
+    same bits.  Device time per call at bf16 S = 23, batch 1 and 32.  Then
+    the video WASP (no BN in its GAP branch) at S = 23 and the video paths'
+    batches, VIDEO_KERNEL_BATCHES, in both dtypes."""
     from unipose_tpu_torch.models.wasp import WASP
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    wasp = WASP()
-    load_numpy_state_dict(wasp, random_state_dict(wasp, seed=11))
-    folded32 = {k: v.to(dev) for k, v in wc.fold_wasp_params(wasp).items()}
     gen = torch.Generator(device=dev).manual_seed(12)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def row(folded, dtype, s, dil, b, unfused, **extra):
+        x = (torch.rand(b, s, s, 2048, generator=gen, device=dev) * 0.5).to(dtype)
+        got = wc.wasp_cascade(x, folded, dil)
+        same = bool(torch.equal(got, wc.wasp_cascade(x, folded, dil)))
+        torch.cuda.synchronize()
+        want = wc.wasp_cascade_reference(x, folded, dil)
+        err = max_rel_err(got, want)
+        out = {
+            "phase": "kernel", "name": "wasp_cascade", **extra, "dtype": str(dtype),
+            "shape": [b, s, s, 2048], "dilations": list(dil),
+            "max_abs_err": float((got.double() - want.double()).abs().max()),
+            "max_rel_err": err, "tol": TOL[dtype], "bit_identical_twice": same,
+            "unfused_max_rel_err": max_rel_err(unfused(x), want),
+            "ms": time_ms(lambda: wc.wasp_cascade(x, folded, dil), 10, flush),
+            "plain_ms": time_ms(lambda: wc.wasp_cascade_reference(x, folded, dil), 5, flush),
+            "unfused_ms": time_ms(lambda: unfused(x), 10, flush),
+            **wasp_bound(b, s, dtype, dil),
+            "split_k": ([p.slices for p in wc.split_plan(b, s, dil, sms)]
+                        if dtype == torch.bfloat16 else None),
+            "gpu": gpu,
+        }
+        if dtype == torch.bfloat16 and s == 23 and not extra:
+            out["device_ms"] = device_ms(lambda: wc.wasp_cascade(x, folded, dil), _is_wasp_kernel)
+            out["device_by_kernel"] = device_breakdown(lambda: wc.wasp_cascade(x, folded, dil))["by_kernel"]
+            out["unfused_device_ms"] = device_breakdown(lambda: unfused(x))["ms"]
+        emit(out)
+        if not (err < TOL[dtype] and same):
+            raise AssertionError(f"wasp_cascade disagrees with its plain version: {out}")
+        return out
+
     main = None
-    for dtype in (torch.float32, torch.bfloat16):
-        folded = wc.cast_folded(folded32, dtype)
-        for s, dil in DILATIONS.items():
-            unfused = unfused_wasp(folded, dtype, dil)
-            for b in KERNEL_BATCHES:
-                x = (torch.rand(b, s, s, 2048, generator=gen, device=dev) * 0.5).to(dtype)
-                got = wc.wasp_cascade(x, folded, dil)
-                same = bool(torch.equal(got, wc.wasp_cascade(x, folded, dil)))
-                torch.cuda.synchronize()
-                want = wc.wasp_cascade_reference(x, folded, dil)
-                err = max_rel_err(got, want)
-                row = {
-                    "phase": "kernel", "name": "wasp_cascade", "dtype": str(dtype),
-                    "shape": [b, s, s, 2048], "dilations": list(dil),
-                    "max_abs_err": float((got.double() - want.double()).abs().max()),
-                    "max_rel_err": err, "tol": TOL[dtype], "bit_identical_twice": same,
-                    "unfused_max_rel_err": max_rel_err(unfused(x), want),
-                    "ms": time_ms(lambda: wc.wasp_cascade(x, folded, dil), 10, flush),
-                    "plain_ms": time_ms(lambda: wc.wasp_cascade_reference(x, folded, dil), 5, flush),
-                    "unfused_ms": time_ms(lambda: unfused(x), 10, flush),
-                    **wasp_bound(b, s, dtype, dil),
-                    "split_k": ([p.slices for p in wc.split_plan(b, s, dil, sms)]
-                                if dtype == torch.bfloat16 else None),
-                    "gpu": gpu,
-                }
-                if dtype == torch.bfloat16 and s == 23:
-                    row["device_ms"] = device_ms(lambda: wc.wasp_cascade(x, folded, dil), _is_wasp_kernel)
-                    row["device_by_kernel"] = device_breakdown(lambda: wc.wasp_cascade(x, folded, dil))["by_kernel"]
-                    row["unfused_device_ms"] = device_breakdown(lambda: unfused(x))["ms"]
-                emit(row)
-                if not (err < TOL[dtype] and same):
-                    raise AssertionError(f"wasp_cascade disagrees with its plain version: {row}")
-                if (dtype, s, b) == MAIN_CASE:
-                    main = row
+    for video in (False, True):
+        wasp = WASP(gap_batchnorm=not video)
+        load_numpy_state_dict(wasp, random_state_dict(wasp, seed=11 + video))
+        folded32 = {k: v.to(dev) for k, v in wc.fold_wasp_params(wasp).items()}
+        cases = ({23: DILATIONS[23]}, VIDEO_KERNEL_BATCHES) if video else (DILATIONS, KERNEL_BATCHES)
+        for dtype in (torch.float32, torch.bfloat16):
+            folded = wc.cast_folded(folded32, dtype)
+            for s, dil in cases[0].items():
+                unfused = unfused_wasp(folded, dtype, dil)
+                for b in cases[1]:
+                    got = row(folded, dtype, s, dil, b, unfused, **({"variant": "video"} if video else {}))
+                    if (dtype, s, b) == MAIN_CASE and not video:
+                        main = got
     return main
 
 
@@ -976,7 +1026,17 @@ def phase_heatmap_kernel(dev, gpu: str, flush: torch.Tensor) -> dict:
     pred = full[1:]  # 63,480 B in: 8 B off a 16-byte boundary
     heatmap_rows(pred, kpts[1:], 3.0, gpu, flush, variant="misaligned_slice",
                  base_offset_mod_16=pred.data_ptr() % 16)
-    return main
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, k, sigma in HM_GENERIC:
+            heatmap_rows(*_heatmap_inputs(rng, b, 46, 46, k, dtype, dev), sigma, gpu, flush,
+                         variant="generic_k")
+    b, t, k, sigma = HM_VIDEO_STEP
+    pred = torch.from_numpy(rng.randn(b * t, 46, 46, k + 1).astype(np.float32)).to(dev)
+    clip = np.concatenate([rng.uniform(0, 368, (b, t, k, 2)), np.ones((b, t, k, 1))], -1)
+    view = torch.from_numpy(clip.astype(np.float32)).to(dev).reshape(b * t, k, 3)[..., :2]
+    video_step = heatmap_rows(pred, view, sigma, gpu, flush, variant="video_step",
+                              kpts_view=f"({b}, {t}, {k}, 3) -> ({b * t}, {k}, 3)[..., :2]")
+    return main, video_step
 
 
 def _device_batch(batch, dev) -> dict:
@@ -1238,6 +1298,451 @@ def phase_train_cli(gpu: str) -> dict:
     return counts
 
 
+def _video_batch(rng, b: int, t: int, dev, size: int = 368, k: int = 13) -> dict:
+    """A device clip batch: raw frames (B, T, H, W, 3), keypoints (B, T, K, 3)
+    inside the frame, visible, and clip centers (B, T, 2)."""
+    frames = rng.randint(0, 256, (b, t, size, size, 3)).astype(np.float32)
+    kpts = np.concatenate([rng.uniform(8, size - 8, (b, t, k, 2)), np.ones((b, t, k, 1))], -1)
+    centers = rng.uniform(size / 4, 3 * size / 4, (b, t, 2))
+    return {"frames": torch.from_numpy(frames).to(dev),
+            "kpts": torch.from_numpy(kpts.astype(np.float32)).to(dev),
+            "centers": torch.from_numpy(centers.astype(np.float32)).to(dev)}
+
+
+def _bn_buffers(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.rsplit(".", 1)[-1] in ("running_mean", "running_var", "num_batches_tracked")}
+
+
+def phase_video_train_step_check(dev) -> dict:
+    """One full-width f32 video train step (a (1, 5) Penn Action clip,
+    368x368, sigma 1) through ``heatmap_mse`` over the B*T frames against
+    the same step, from the same weights and dropout seed, through
+    materialised targets and ``mse * T``: loss to 1e-5, every gradient to
+    1e-4 max-norm relative; one forward and one backward heatmap_mse kernel
+    in the step, counted from the profiler's raw events and by the
+    wrappers.  Returns the wrappers' counts of the fused step."""
+    spec = DATASETS["Penn_Action"]
+    batch = _video_batch(np.random.RandomState(41), 1, CHUNK, dev)
+    torch.backends.cudnn.deterministic = True
+    weights, runs = None, {}
+    try:
+        for fused in (True, False):
+            model, optimizer, state = create_train_state(ModelConfig(**VIDEO), TrainConfig(), seed=0, device=dev)
+            weights = weights or random_state_dict(model, seed=1)
+            load_numpy_state_dict(model, weights)
+            state.generator.manual_seed(5)
+            step = make_train_step(model, optimizer, spec, video=True, fused_loss=fused)
+            out = {}
+            kernels.reset_launches()
+            prof = profile(lambda: out.update(step(state, batch)), 1,
+                           {"heatmap_mse_all": _is_heatmap_kernel, **HEATMAP_KERNELS})
+            runs[fused] = (out["loss"].item(), {n: p.grad.clone() for n, p in model.named_parameters()},
+                           kernels.launch_counts(), prof)
+            del model, optimizer, state, step
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    (lf, gf, cf, pf), (lp, gp, cp, pp) = runs[True], runs[False]
+    errs = {n: max_rel_err(gf[n], g) for n, g in gp.items()}
+    worst = max(errs, key=errs.get)
+    row = {"phase": "video_train_step_check", "dtype": "torch.float32", "clip": [1, CHUNK], "input": 368,
+           "sigma": spec.sigma, "loss_fused": lf, "loss_plain": lp, "loss_rel_err": abs(lf - lp) / abs(lp),
+           "grad_max_rel_err": errs[worst], "worst_tensor": worst, "tensors": len(errs),
+           "launches_fused": cf, "launches_plain": cp,
+           "profiled_fused": {k: pf[f"{k}_launches_per_step"] for k in ("heatmap_mse", "heatmap_mse_backward")},
+           "profiled_plain_heatmap_kernels": pp["heatmap_mse_all_launches_per_step"]}
+    emit(row)
+    if not (row["loss_rel_err"] < 1e-5 and errs[worst] < 1e-4
+            and cf["heatmap_mse"] == 1 and cf["heatmap_mse_backward"] == 1
+            and cp["heatmap_mse"] == 0 and cp["heatmap_mse_backward"] == 0
+            and row["profiled_fused"] == {"heatmap_mse": 1, "heatmap_mse_backward": 1}
+            and pf["heatmap_mse_all_launches_per_step"] == 2 and pp["heatmap_mse_all_launches_per_step"] == 0):
+        raise AssertionError(f"the video train step through the kernel disagrees with the plain loss: {row}")
+    return cf
+
+
+def _resize_matrix(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_out, n_in) f64 weights of align-corners linear interpolation."""
+    pos = torch.arange(n_out, dtype=torch.float64) * ((n_in - 1) / max(n_out - 1, 1))
+    lo = pos.floor().long().clamp(max=max(n_in - 2, 0))
+    frac = pos - lo
+    m = torch.zeros(n_out, n_in, dtype=torch.float64)
+    m[torch.arange(n_out), lo] = 1 - frac
+    if n_in > 1:
+        m[torch.arange(n_out), lo + 1] += frac
+    return m
+
+
+def matmul_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """``bilinear_resize`` as two products with interpolation matrices,
+    whose backward (cuBLAS) is deterministic; F.interpolate's bilinear
+    backward on CUDA adds with atomics and has no deterministic version."""
+    out_hw = (int(out_hw[0]), int(out_hw[1]))
+    if tuple(x.shape[-2:]) == out_hw:
+        return x
+    mh, mw = (_resize_matrix(n, o).to(x.device, x.dtype) for n, o in zip(x.shape[-2:], out_hw))
+    return torch.einsum("oh,bchw,pw->bcop", mh, x, mw)
+
+
+@contextlib.contextmanager
+def deterministic_steps():
+    """Train steps that give the same bits from the same state: PyTorch's
+    deterministic algorithms (an op without one raises), deterministic
+    cuDNN, and the decoder's upsample as ``matmul_resize``."""
+    resize = decoder_module.bilinear_resize
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    decoder_module.bilinear_resize = matmul_resize
+    try:
+        yield
+    finally:
+        decoder_module.bilinear_resize = resize
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+@contextlib.contextmanager
+def tf32_recompute():
+    """A faulty remat, for the sensitivity of the check: each checkpoint
+    segment's recompute runs its convolutions in TF32 where the first pass
+    ran them in f32, so the backward reads activations that differ from
+    the forward's by TF32's rounding (10-bit mantissa)."""
+    frozen = resnet_module._bn_stats_frozen
+
+    @contextlib.contextmanager
+    def frozen_tf32(module):
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            with frozen(module):
+                yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+
+    resnet_module._bn_stats_frozen = frozen_tf32
+    try:
+        yield
+    finally:
+        resnet_module._bn_stats_frozen = frozen
+
+
+def phase_video_remat(dev, gpu: str) -> None:
+    """Full-width f32 video steps (clip batch 1, 368x368) at T = 5 and 20.
+
+    Gradients, under ``deterministic_steps``, from the same weights, batch
+    and dropout seed: the plain step twice (the floor: 0 if the steps are
+    deterministic), with ``remat_tower`` (held to REMAT_GRAD_TOL of the
+    plain step), and with ``remat_tower`` and a TF32 recompute
+    (``tf32_recompute``: a fault, which must read above REMAT_GRAD_TOL).
+
+    Then each of plain and ``remat_tower`` as it runs in training (default
+    algorithms): the first step's BN buffers and loss against the plain
+    path's (BN statistics to 1e-5, ``num_batches_tracked`` 1: the
+    recompute updated nothing), the step time (CUDA events, median of 3
+    after a warm-up), a profiler window of two steps (device busy, idle
+    share) and the peak memory of each."""
+    spec = DATASETS["Penn_Action"]
+    weights = None
+
+    def fresh(remat):
+        nonlocal weights
+        model, optimizer, state = create_train_state(ModelConfig(**VIDEO, remat_tower=remat),
+                                                     TrainConfig(), seed=0, device=dev)
+        weights = weights or random_state_dict(model, seed=1)
+        load_numpy_state_dict(model, weights)
+        state.generator.manual_seed(5)
+        return model, state, make_train_step(model, optimizer, spec, video=True, fused_loss=True)
+
+    for t in VIDEO_REMAT_FRAMES:
+        batch = _video_batch(np.random.RandomState(42 + t), 1, t, dev)
+        gaps, plain = {}, None
+        for arm, remat, fault in (("plain", False, contextlib.nullcontext), ("plain_again", False,
+                                  contextlib.nullcontext), ("remat_tower", True, contextlib.nullcontext),
+                                  ("remat_tower_tf32_recompute", True, tf32_recompute)):
+            model, state, step = fresh(remat)
+            with deterministic_steps(), fault():
+                step(state, batch)
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+            if plain is None:
+                plain = grads
+            else:
+                gaps[arm] = max(max_rel_err(grads[n], g) for n, g in plain.items())
+            del model, state, step, grads
+            torch.cuda.empty_cache()
+        del plain
+
+        runs = {}
+        torch.backends.cudnn.deterministic = True
+        try:
+            for remat in (False, True):
+                model, state, step = fresh(remat)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                loss = step(state, batch)["loss"].item()
+                buffers = _bn_buffers(model)
+                step(state, batch)
+                times = [call_ms(lambda: step(state, batch)) for _ in range(3)]
+                prof = profile(lambda: step(state, batch), 2)
+                runs[remat] = (loss, buffers, statistics.median(times),
+                               (torch.cuda.max_memory_allocated() - base) / 2**30,
+                               {k: prof[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step", "idle_share")})
+                del model, state, step
+                torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        (l0, b0, ms0, mem0, prof0), (l1, b1, ms1, mem1, prof1) = runs[False], runs[True]
+        stat_gap = max(max_rel_err(b1[n].double(), v.double()) for n, v in b0.items()
+                       if not n.endswith("num_batches_tracked"))
+        tracked = {int(v) for k, v in {**b0, **b1}.items() if k.endswith("num_batches_tracked")}
+        row = {"phase": "video_remat", "dtype": "torch.float32", "clip": [1, t], "input": 368,
+               "step_ms": ms0, "step_ms_remat_tower": ms1, "peak_mem_gb_above_state": mem0,
+               "peak_mem_gb_above_state_remat_tower": mem1, "loss": l0, "loss_remat_tower": l1,
+               "deterministic_grad_max_rel_gap": gaps, "grad_tol": REMAT_GRAD_TOL,
+               "bn_stat_max_rel_gap": stat_gap, "num_batches_tracked": sorted(tracked),
+               "profile": prof0, "profile_remat_tower": prof1, "gpu": gpu}
+        emit(row)
+        del runs
+        if not (gaps["remat_tower"] <= REMAT_GRAD_TOL < gaps["remat_tower_tf32_recompute"]
+                and stat_gap < 1e-5 and tracked == {1} and mem1 < mem0 and abs(l1 - l0) <= 1e-5 * abs(l0)):
+            raise AssertionError(f"remat_tower changed the step: {row}")
+
+
+def phase_train_video_cli(gpu: str) -> dict:
+    """The video training CLI on Penn Action files: ``cli/train.main
+    --dataset Penn_Action --model_arch uniposeLSTM`` (full width, f32,
+    368x368, the reference's clip batch 1, 5-frame clips, sigma 1) on a root
+    of 8 train and 4 val clips for two epochs (checkpoints at steps 8 and
+    16), the launch counts set to 0 just before and read just after, the
+    second epoch traced; a second run over the checkpoint directory, whose
+    restored state must equal the saved step 16 bit for bit, for one epoch;
+    ``cli/eval.main --model_arch uniposeLSTM`` over the directory, whose
+    mAP must equal the resumed trainer's.  Returns the launch counts."""
+    with tempfile.TemporaryDirectory(prefix="unipose_video_cli_") as tmp:
+        root = os.path.join(tmp, "penn")
+        write_penn_root(root, "train", VIDEO_CLI_CLIPS[0], VIDEO_CLI_FRAMES, 23, sides=VIDEO_CLI_SIDES)
+        write_penn_root(root, "val", VIDEO_CLI_CLIPS[1], VIDEO_CLI_FRAMES, 24, first=VIDEO_CLI_CLIPS[0] + 1,
+                        sides=VIDEO_CLI_SIDES)
+        ckpt, trace_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "trace")
+        argv = ["--dataset", "Penn_Action", "--model_arch", "uniposeLSTM", "--train_dir", root,
+                "--val_dir", root, "--checkpoint_dir", ckpt, "--model_name", os.path.join(tmp, "lstm")]
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        first = cli_train.main(argv + ["--epochs", "2", "--profile_dir", trace_dir, "--profile_epoch", "1"])
+        path_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps, kept, frames = first.state.step, sorted(os.listdir(ckpt), key=int), first.model_config.frame_memory
+        clip_batch = first.train_config.batch_size
+        e1, e2 = first.epoch_times[0], first.epoch_times[1]
+        route = "native" if type(first.train_loader).__name__.startswith("_Native") else "python"
+        idle = trace_idle_share(os.path.join(trace_dir, "trace.json"))
+        del first
+        torch.cuda.empty_cache()
+
+        args = cli_train.build_argparser().parse_args(argv + ["--epochs", "1"])
+        second = cli_train.make_trainer(args)
+        saved = torch.load(os.path.join(ckpt, kept[-1]), map_location="cpu", weights_only=True)
+        start_step = second.state.step
+        resumed_equal = _states_equal(second.state.state_dict(), saved)
+        del saved
+        cli_train.run(second, args)
+        end_step, e3 = second.state.step, second.epoch_times[0]
+        torch.backends.cudnn.deterministic = True  # the two validations pick the same algorithms
+        try:
+            trainer_map = second.validation(1)
+            del second
+            torch.cuda.empty_cache()
+            eval_map = cli_eval.main(["--dataset", "Penn_Action", "--model_arch", "uniposeLSTM",
+                                      "--val_dir", root, "--checkpoint_dir", ckpt])
+        finally:
+            torch.backends.cudnn.deterministic = False
+        torch.cuda.empty_cache()
+
+    def rates(e):
+        return {"step_ms": e["seconds"] / e["steps"] * 1e3,
+                "clips_per_s": e["steps"] * clip_batch / e["seconds"],
+                "frames_per_s": e["steps"] * clip_batch * frames / e["seconds"],
+                "loader_wait_ms_per_step": e["loader_wait_s"] / e["steps"] * 1e3,
+                "upload_ms_per_step": e["upload_s"] / e["steps"] * 1e3}
+
+    row = {"phase": "train_video_cli", "data_route": route, "dtype": "torch.float32", "clip_batch": clip_batch,
+           "frames_a_clip": frames, "input": 368, "clips": list(VIDEO_CLI_CLIPS),
+           "frame_sides_px": list(VIDEO_CLI_SIDES), "path_s": path_s, "launches": counts, "steps": steps,
+           "checkpoints": kept, "epoch1": rates(e1), "epoch2": rates(e2), "epoch2_traced": True,
+           "epoch3": rates(e3), "epoch3_traced": False, "epoch2_profile": idle, "peak_mem_gb": peak / 2**30,
+           "resume_start_step": start_step, "resume_bit_identical": resumed_equal,
+           "resume_end_step": end_step, "trainer_mAP": trainer_map, "eval_mAP": eval_map, "gpu": gpu}
+    emit(row)
+    per_epoch = VIDEO_CLI_CLIPS[0] // clip_batch
+    ok = (clip_batch == 1 and frames == CHUNK and steps == 2 * per_epoch
+          and kept == [str(per_epoch), str(steps)]
+          and counts["heatmap_mse"] == steps and counts["heatmap_mse_backward"] == steps
+          and counts["wasp_cascade"] > 0 and counts["fused_stem"] > 0
+          and start_step == steps and resumed_equal and end_step == steps + per_epoch
+          and eval_map == trainer_map and 0.0 <= eval_map <= 1.0)
+    if not ok:
+        raise AssertionError(f"the video training CLI failed its checks: {row}")
+    return counts
+
+
+def phase_video_learning(dev) -> None:
+    """Learning sanity on the video path: a fresh bf16 video Trainer (the
+    reference's init from its seed) takes ten steps on one fixed (1, 5)
+    clip; the last loss must be below the first."""
+    trainer = Trainer(ModelConfig(**VIDEO, compute_dtype=torch.bfloat16),
+                      TrainConfig(batch_size=1, sigma=1.0, model_name=""), loaders=(None, None))
+    batch = _video_batch(np.random.RandomState(43), 1, CHUNK, dev)
+    losses = [trainer.train_step(trainer.state, batch)["loss"] for _ in range(10)]
+    losses = [v.item() for v in losses]
+    emit({"phase": "video_learning", "dtype": "torch.bfloat16", "clip": [1, CHUNK],
+          "start": "fresh seeded weights", "one_clip_losses": losses})
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"ten steps on one clip did not lower the loss: {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def stream_twin_errs(model, frames, centers, spec) -> list:
+    """The stream through the model's kernels and through its plain stem
+    and plain WASP: each frame's max-norm relative gap."""
+    heat = stream_video(model, frames, centers, spec, chunk=CHUNK)
+    _plain_twin(model)
+    plain = stream_video(model, frames, centers, spec, chunk=CHUNK)
+    _kernel_twin(model)
+    return [max_rel_err(torch.from_numpy(heat[:, t]), torch.from_numpy(plain[:, t]))
+            for t in range(heat.shape[1])]
+
+
+def _checked(kernel, plain, errs: list):
+    """``kernel`` that also runs ``plain`` on the same inputs and appends
+    the max-norm relative gap of the two to ``errs``."""
+    def run(*args):
+        out = kernel(*args)
+        errs.append(max_rel_err(out, plain(*args)))
+        return out
+    return run
+
+
+def phase_bbc_stream_eval(dev, gpu: str) -> dict:
+    """The BBC long-video evaluation (BASELINE config 4), composed as
+    tests/test_integration_bbc.py composes it: a BBC root with one 40-frame
+    video -> ``BBCDataset(seq_len=40)`` -> ``stream_video`` in 5-frame
+    chunks with the ConvLSTM state carried, through a full-width 7-joint
+    UniPose-LSTM in bf16 (seeded weights, randomised BN statistics) -> PCK
+    frame by frame.  A cold pass first, then the counted and timed one (the
+    counts set to 0 just before): one ``fused_stem`` and one
+    ``wasp_cascade`` launch a chunk.
+
+    The kernels held on this stream: a third pass in which every
+    ``fused_stem`` and ``wasp_cascade`` call is set against its plain
+    version on the same inputs (TOL[bf16]); and the f32 stream from the
+    same weights against its plain-stem, plain-WASP twin, frame by frame
+    (TOL[f32]).  The bf16 stream's gap to its plain twin is printed, not
+    held: with seeded weights a bf16 rounding that flips in the stem or
+    WASP moves a ConvLSTM gate that sums the full-depth decoder's ~1e7
+    terms to near 0, so both bf16 streams lie O(0.1) apart (PERF.md §6).
+    Returns the counts."""
+    spec = DATASETS["BBC"]
+    with tempfile.TemporaryDirectory(prefix="unipose_bbc_") as tmp:
+        root = write_bbc_root(os.path.join(tmp, "bbc"), BBC_FRAMES, seed=7)
+        t0 = time.perf_counter()
+        sample = BBCDataset(root, spec.sigma, "Val", seq_len=BBC_FRAMES)[0]
+        load_s = time.perf_counter() - t0
+    frames, centers = sample["frames"][None], sample["centers"][None]
+    config = ModelConfig(dataset="BBC", num_classes=7, variant="lstm", compute_dtype=torch.bfloat16)
+    model = init_model(config, seed=0, device=dev)
+    weights = random_state_dict(model, seed=1)
+    load_numpy_state_dict(model, weights)
+    stream_video(model, frames, centers, spec, chunk=CHUNK)  # cold: cuDNN picks, weights cast and folded
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    heat = stream_video(model, frames, centers, spec, chunk=CHUNK)
+    video_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    calls = {"fused_stem": [], "wasp_cascade": []}
+    model.backbone.stem = _checked(fs.fused_stem, fs.fused_stem_reference, calls["fused_stem"])
+    model.wasp.cascade = _checked(wc.wasp_cascade, wc.wasp_cascade_reference, calls["wasp_cascade"])
+    checked = stream_video(model, frames, centers, spec, chunk=CHUNK)
+    _kernel_twin(model)
+    errs_bf16 = stream_twin_errs(model, frames, centers, spec)
+    del model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = init_model(dataclasses.replace(config, compute_dtype=torch.float32), seed=0, device=dev)
+    load_numpy_state_dict(model, weights)
+    errs_f32 = stream_twin_errs(model, frames, centers, spec)
+    del model
+    torch.cuda.empty_cache()
+    targets = make_targets(torch.from_numpy(sample["kpts"][None]), spec).numpy()
+    pck = [float(accuracy(heat[:, t], targets[:, t], 0.2, 0.5, "BBC", layout="NHWC")[1][0])
+           for t in range(BBC_FRAMES)]
+    chunks = BBC_FRAMES // CHUNK
+    row = {"phase": "bbc_stream_eval", "dtype": "torch.bfloat16", "frames": BBC_FRAMES, "chunk": CHUNK,
+           "joints": 7, "load_s": load_s, "video_s": video_s, "frames_per_s": BBC_FRAMES / video_s,
+           "pck_by_frame": pck, "launches": counts, "shape": list(heat.shape),
+           "kernel_calls_vs_plain_max_rel_err": {k: max(v) for k, v in calls.items()},
+           "kernel_calls_checked": {k: len(v) for k, v in calls.items()}, "tol": TOL[torch.bfloat16],
+           "checked_pass_bit_identical": bool(np.array_equal(checked, heat)),
+           "f32_stream_vs_plain_twin_max_rel_err": max(errs_f32), "f32_tol": TOL[torch.float32],
+           "f32_stream_vs_plain_twin_by_frame": errs_f32,
+           "bf16_stream_vs_plain_twin_max_rel_err_not_held": max(errs_bf16),
+           "finite": bool(np.isfinite(heat).all()), "gpu": gpu}
+    emit(row)
+    if not (counts["fused_stem"] == chunks and counts["wasp_cascade"] == chunks and row["finite"]
+            and all(len(v) == chunks and max(v) < TOL[torch.bfloat16] for v in calls.values())
+            and row["checked_pass_bit_identical"] and max(errs_f32) < TOL[torch.float32]
+            and heat.shape == (1, BBC_FRAMES, 46, 46, 8) and all(0.0 <= v <= 1.0 for v in pck)):
+        raise AssertionError(f"the BBC stream evaluation failed its checks: {row}")
+    return counts
+
+
+def phase_demo(gpu: str) -> dict:
+    """The demo: ``cli/demo.main`` on one JPG (the 368x368 image model,
+    forward and upsample on the card), then ``Trainer.test`` of a video
+    Trainer (a one-frame rollout with a zero centermap), each with the
+    counts set to 0 just before: ``pose.png`` and the ``heat`` overlays
+    written, one ``fused_stem`` and one ``wasp_cascade`` launch each.
+    Returns the counts of both together."""
+    import cv2
+
+    with tempfile.TemporaryDirectory(prefix="unipose_demo_") as tmp:
+        image = os.path.join(tmp, "person.jpg")
+        cv2.imwrite(image, np.random.RandomState(9).randint(0, 256, (480, 360, 3)).astype(np.uint8))
+        out = {name: os.path.join(tmp, name) for name in ("image", "video")}
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        kpts = cli_demo.main([image, "--dataset", "LSP", "--out_dir", out["image"]])
+        demo_s = time.perf_counter() - t0
+        image_counts = kernels.launch_counts()
+        trainer = Trainer(ModelConfig(**VIDEO), TrainConfig(batch_size=1, model_name=""), loaders=(None, None))
+        trainer.test(image, out["video"])  # cold: cuDNN picks
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        video_kpts = trainer.test(image, out["video"])
+        test_s = time.perf_counter() - t0
+        video_counts = kernels.launch_counts()
+        written = {name: sorted(os.listdir(os.path.join(d, "heat"))) if os.path.isdir(os.path.join(d, "heat"))
+                   else [] for name, d in out.items()}
+        poses = {name: os.path.exists(os.path.join(d, "pose.png")) for name, d in out.items()}
+        del trainer
+    torch.cuda.empty_cache()
+    counts = {k: image_counts[k] + video_counts[k] for k in image_counts}
+    row = {"phase": "demo", "cli_demo_s": demo_s, "video_trainer_test_s_warm": test_s,
+           "keypoints": kpts, "video_keypoints": video_kpts, "pose_png": poses,
+           "heat_pngs": {k: len(v) for k, v in written.items()}, "launches_cli_demo": image_counts,
+           "launches_video_test": video_counts, "gpu": gpu}
+    emit(row)
+    ok = (all(poses.values()) and len(written["image"]) == 15 and len(written["video"]) == 14
+          and len(kpts) == 14 and len(video_kpts) == 13
+          and all(c["fused_stem"] == 1 and c["wasp_cascade"] == 1 for c in (image_counts, video_counts)))
+    if not ok:
+        raise AssertionError(f"the demo failed its checks: {row}")
+    return counts
+
+
 def _check_image_keypoints(replies) -> None:
     for r in replies:
         k = np.asarray(r["keypoints"])
@@ -1292,7 +1797,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     main_case = phase_kernel(dev, gpu, flush)
     stem_main = phase_stem_kernel(dev, gpu, flush)
-    hm_main = phase_heatmap_kernel(dev, gpu, flush)
+    hm_main, hm_video_step = phase_heatmap_kernel(dev, gpu, flush)
     phase_model(dev, gpu, flush)
     paths = {"serve": phase_serve(gpu)}
     loaders = make_loaders("image", input_size=368, train_samples=64, val_samples=16,
@@ -1307,6 +1812,12 @@ def main() -> int:
     video_serve = phase_serve_video(gpu)
     paths["serve_video"] = video_serve["clip"]
     paths["serve_video_stream"] = video_serve["stream"]
+    paths["video_train_step_check"] = phase_video_train_step_check(dev)
+    phase_video_remat(dev, gpu)
+    paths["train_video_cli"] = phase_train_video_cli(gpu)
+    phase_video_learning(dev)
+    paths["bbc_stream_eval"] = phase_bbc_stream_eval(dev, gpu)
+    paths["demo"] = phase_demo(gpu)
     paths.update({f"train {k} (validation)": v for k, v in train_counts.items()})
     main_train = train_counts["torch.float32"]  # the Trainer's default: f32
 
@@ -1346,7 +1857,8 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": main_train[name],
             "launches_by_path": {**{f"train {k}": v[name] for k, v in train_counts.items()},
-                                 "train_cli": paths["train_cli"][name]},
+                                 **{p: c[name] for p, c in paths.items()
+                                    if name in c and not p.endswith("(validation)")}},
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -1358,6 +1870,9 @@ def main() -> int:
             "unfused_ms": row["unfused_ms"],
             "unfused_device_ms": row["unfused_device_ms"],
             "shape": f"{row['dtype']} {row['shape']}",
+            "video_step": {k: hm_video_step[name][k] for k in (
+                "shape", "ms", "device_ms", "kernels_per_call", "plain_ms", "unfused_ms",
+                "unfused_device_ms", "bound_ms", "bound_by", "max_abs_err", "rel_err")},
         })
     emit({"kernels": entries})
     print(gpu, flush=True)

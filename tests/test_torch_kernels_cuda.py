@@ -46,8 +46,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _folded(seed, dev, dtype):
-    wasp = WASP()
+def _folded(seed, dev, dtype, gap_batchnorm=True):
+    wasp = WASP(gap_batchnorm=gap_batchnorm)
     load_numpy_state_dict(wasp, random_state_dict(wasp, seed=seed))
     return wc.cast_folded({k: v.to(dev) for k, v in wc.fold_wasp_params(wasp).items()}, dtype)
 
@@ -80,6 +80,21 @@ def test_wasp_cascade_matches_plain(cuda, dtype, s, dilations, b):
     assert torch.equal(got, again)
     want = wc.wasp_cascade_reference(x, folded, dilations)
     assert _max_rel_err(got, want) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [5, 20, 40])
+def test_video_wasp_cascade_matches_plain(cuda, dtype, b):
+    """The video WASP (no BN in its GAP branch) at 368x368 OS16 and the
+    video paths' batches: a 5-frame chunk (split K slices in bf16), a
+    20-frame rollout, a validation batch of 8 five-frame clips."""
+    folded = _folded(13, cuda, dtype, gap_batchnorm=False)
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    x = (torch.rand(b, 23, 23, 2048, generator=gen, device=cuda) * 0.5).to(dtype)
+    got = wc.wasp_cascade(x, folded, (18, 12, 6))
+    assert torch.equal(got, wc.wasp_cascade(x, folded, (18, 12, 6)))
+    assert _max_rel_err(got, wc.wasp_cascade_reference(x, folded, (18, 12, 6))) < TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -230,6 +245,35 @@ def test_heatmap_mse_matches_plain_at_batch_32(cuda, dtype, h, w, k):
     and small heatmaps, whose tiles cross image boundaries."""
     pred, kpts = _heatmap_inputs(cuda, 32, k, dtype, seed=h * w + k, h=h, w=w)
     _check_heatmap_mse(pred, kpts, 3.0 if k != 13 else 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 5, 8])
+def test_heatmap_mse_generic_width_at_46(cuda, dtype, b):
+    """BBC's 7 joints (8 channels) at the 368x368 heatmap size: K has no
+    instantiation of its own, so the generic body runs; sigma 1 (video)."""
+    pred, kpts = _heatmap_inputs(cuda, b, 7, dtype, seed=700 + b)
+    _check_heatmap_mse(pred, _with_visibility(kpts)[..., :2], 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heatmap_mse_at_the_video_step_shape(cuda, dtype):
+    """The video train step's call: a (1, 5) Penn Action clip flattened to
+    (5, 46, 46, 14), sigma 1, the keypoints the strided view of the clip's
+    (1, 5, 13, 3) rows reshaped to (5, 13, 3)[..., :2], read in place."""
+    rng = np.random.RandomState(41)
+    pred = torch.from_numpy(rng.randn(5, 46, 46, 14).astype(np.float32)).to(cuda, dtype)
+    clip = np.concatenate([rng.uniform(0, 368, (1, 5, 13, 2)), np.ones((1, 5, 13, 1))], -1)
+    rows = torch.from_numpy(clip.astype(np.float32)).to(cuda)
+    view = rows.reshape(5, 13, 3)[..., :2]
+    assert not view.is_contiguous() and view.data_ptr() == rows.data_ptr()
+    _check_heatmap_mse(pred, view, 1.0)
+    g = torch.tensor(0.5, device=cuda)
+    assert torch.equal(hm.heatmap_mse(pred, view, 8, 1.0), hm.heatmap_mse(pred, view.contiguous(), 8, 1.0))
+    assert torch.equal(hm.heatmap_mse_backward(pred, view, g, 8, 1.0),
+                       hm.heatmap_mse_backward(pred, view.contiguous(), g, 8, 1.0))
 
 
 @pytest.mark.cuda
@@ -435,6 +479,52 @@ def test_train_step_through_the_kernel_matches_the_plain_loss(cuda, monkeypatch)
         loss = make_train_step(model, optimizer, spec, fused_loss=fused)(state, batch)["loss"]
         torch.cuda.synchronize()
         assert hm.heatmap_mse.launches == before + int(fused)
+        runs.append((loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}))
+    (l_fused, g_fused), (l_plain, g_plain) = runs
+    assert abs(l_fused - l_plain) <= 1e-5 * abs(l_plain)
+    for name, g in g_plain.items():
+        assert _max_rel_err(g_fused[name], g) < 1e-4, name
+
+
+@pytest.mark.cuda
+def test_video_train_step_through_the_kernel_matches_the_plain_loss(cuda, monkeypatch):
+    """One f32 video train step of a reduced-depth UniPose-LSTM (a (1, 3)
+    clip at 128x128) through ``fused_loss`` (one forward and one backward
+    kernel over the B*T frames) against the same step through materialised
+    targets: loss 1e-5, every gradient 1e-4 max-norm relative."""
+    import dataclasses
+
+    from unipose_tpu_torch.core.config import DATASETS, TrainConfig
+    from unipose_tpu_torch.models.layers import use_dropout_generator
+    from unipose_tpu_torch.train.optim import make_optimizer
+    from unipose_tpu_torch.train.state import TrainState
+    from unipose_tpu_torch.train.steps import make_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    spec = dataclasses.replace(DATASETS["Penn_Action"], input_size=128, sigma=1.0)
+    rng = np.random.RandomState(12)
+    batch = {
+        "frames": torch.from_numpy((rng.rand(1, 3, 128, 128, 3) * 255).astype(np.float32)).to(cuda),
+        "kpts": torch.from_numpy(
+            np.concatenate([rng.rand(1, 3, 13, 2) * 128, np.ones((1, 3, 13, 1))], -1).astype(np.float32)
+        ).to(cuda),
+        "centers": torch.from_numpy((rng.rand(1, 3, 2) * 128).astype(np.float32)).to(cuda),
+    }
+    config = ModelConfig(dataset="Penn_Action", num_classes=13, variant="lstm")
+    runs = []
+    for fused in (True, False):
+        model = build_model(config, layers=(1, 1, 1, 1))
+        load_numpy_state_dict(model, random_state_dict(model, seed=13))
+        model = model.to(cuda, memory_format=torch.channels_last)
+        gen = torch.Generator(device=cuda).manual_seed(14)
+        use_dropout_generator(model, gen)
+        optimizer, scheduler = make_optimizer(model.parameters(), TrainConfig())
+        state = TrainState(model, optimizer, scheduler, gen)
+        before = (hm.heatmap_mse.launches, hm.heatmap_mse_backward.launches)
+        loss = make_train_step(model, optimizer, spec, video=True, fused_loss=fused)(state, batch)["loss"]
+        torch.cuda.synchronize()
+        assert (hm.heatmap_mse.launches, hm.heatmap_mse_backward.launches) == (
+            before[0] + int(fused), before[1] + int(fused))
         runs.append((loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}))
     (l_fused, g_fused), (l_plain, g_plain) = runs
     assert abs(l_fused - l_plain) <= 1e-5 * abs(l_plain)

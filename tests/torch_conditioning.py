@@ -3,13 +3,16 @@ that tests/test_torch_train.py holds its parity at.
 
     JAX_PLATFORMS=cpu python tests/torch_conditioning.py --size 32 --batch 4 --seeds 31-74
     JAX_PLATFORMS=cpu python tests/torch_conditioning.py --size 64 --batch 2 --seeds 48
+    JAX_PLATFORMS=cpu python tests/torch_conditioning.py --video --size 32 --batch 2 --frames 3 --seeds 0-7
 
 For each weights seed (the reduced-depth model of the tests, dropout off,
 materialised targets, 8 torch threads) it prints one JSON line: the worst
 gradient tensor of the port's f32 step against its own f64 twin and against
 JAX's f32 step, how many tensors miss 1e-4 against JAX, and every BN
 statistic that lies more than 1e-5 from another reading (port against JAX,
-port against f64, JAX against f64).
+port against f64, JAX against f64).  ``--video``: the same readings for the
+UniPose-LSTM's video step (tests/test_torch_video_train.py's model, clips of
+``--frames`` frames).
 """
 
 from __future__ import annotations
@@ -68,17 +71,52 @@ def reading(size: int, batch_size: int, seed: int) -> dict:
             "stats_over_1e-5": stats}
 
 
+def video_reading(size: int, batch_size: int, frames: int, seed: int) -> dict:
+    import test_torch_video_train as V
+    from torch_parity import reduced_lstm_depth
+
+    spec, jspec = V.specs(size)
+    with reduced_lstm_depth(V.REDUCED):
+        jmodel, variables = V.jax_variables(seed)
+        batch = V.clip_batch(11, batch_size, frames, size)
+        state = V.port_state(variables)
+        steps.make_train_step(state.model, state.optimizer, spec, video=True)(state, V.torch_batch(batch))
+        grads64, stats64 = V.float64_twin(variables, batch, spec)
+        _, jgrads, jstats = V.jax_step(jmodel, variables, batch, jspec)
+    named = dict(state.model.named_parameters())
+    vs64 = {n: max_rel_err(p.grad.numpy(), grads64[n]) for n, p in named.items()}
+    vsjax = {n: max_rel_err(p.grad.numpy(), jgrads[n].numpy()) for n, p in named.items()}
+    jaxvs64 = {n: max_rel_err(jgrads[n].numpy(), grads64[n]) for n in named}
+    stats = {}
+    for n, v in T._stats(state).items():
+        r = (max_rel_err(v.numpy(), jstats[n].numpy()), max_rel_err(v.numpy(), stats64[n]),
+             max_rel_err(jstats[n].numpy(), stats64[n]))
+        if max(r) > 1e-5:
+            stats[n] = {"port_vs_jax": r[0], "port_vs_f64": r[1], "jax_vs_f64": r[2]}
+    worst = lambda d: max(d.items(), key=lambda kv: kv[1])  # noqa: E731
+    return {"video": True, "size": size, "batch": batch_size, "frames": frames, "seed": seed,
+            "grad_port_vs_f64": worst(vs64), "grad_port_vs_jax": worst(vsjax),
+            "grad_jax_vs_f64": worst(jaxvs64),
+            "tensors_over_1e-4_vs_jax": sum(v >= 1e-4 for v in vsjax.values()),
+            "stats_over_1e-5": stats}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=T.GRAD_SIZE)
     ap.add_argument("--batch", type=int, default=T.GRAD_BATCH)
     ap.add_argument("--seeds", default=str(T.GRAD_SEED), help="one seed, or first-last")
+    ap.add_argument("--video", action="store_true", help="the UniPose-LSTM's video step")
+    ap.add_argument("--frames", type=int, default=3, help="frames a clip (--video)")
     args = ap.parse_args()
     first, _, last = args.seeds.partition("-")
     flax.linen.Dropout.__call__ = lambda self, x, *a, **kw: x
     torch.set_num_threads(8)
     for seed in range(int(first), int(last or first) + 1):
-        print(json.dumps(reading(args.size, args.batch, seed)), flush=True)
+        if args.video:
+            print(json.dumps(video_reading(args.size, args.batch, args.frames, seed)), flush=True)
+        else:
+            print(json.dumps(reading(args.size, args.batch, seed)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Shared helpers for the tests that hold ``unipose_tpu_torch`` against
 ``unipose_tpu``: the parity measure, seeded BN perturbation of JAX
-variables, a JAX UniPose whose backbone depth can be cut, and the same cut
-for the JAX UniPoseLSTM."""
+variables, a JAX UniPose whose backbone depth can be cut, the same cut
+for the JAX UniPoseLSTM, and a fixture that pins torch's CPU threads."""
 
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 from flax import linen as nn
 
 from unipose_tpu.models.decoder import Decoder
@@ -112,3 +114,16 @@ def reduced_lstm_depth(layers: Tuple[int, int, int, int]):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(unipose_lstm, "ResNet101", functools.partial(ResNet101, layers=layers))
         yield
+
+
+@pytest.fixture
+def two_threads():
+    """Torch on two CPU threads for the test: the test runner puts six
+    workers on the machine, and a worker whose torch spins on every core
+    slows them all (a full-depth CPU train step ran ~10x slower with four
+    workers at eight threads each).  Import it into a test module and
+    request it, or make it autouse there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)

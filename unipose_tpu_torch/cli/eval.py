@@ -2,11 +2,14 @@
 PCK/PCKh/AP report (Reference: unipose.py validation loop, :133-193).
 
     python -m unipose_tpu_torch.cli.eval --dataset LSP --val_dir ... --checkpoint_dir ...
+    python -m unipose_tpu_torch.cli.eval --dataset Penn_Action --model_arch uniposeLSTM \
+        --frame_memory 5 --val_dir ... --checkpoint_dir ...
 
 Counterpart of ``unipose_tpu/cli/eval.py``, plus ``--device`` and
 ``--input_size`` as ``cli/train.py`` takes them.  Restores the newest
 checkpoint of ``--checkpoint_dir`` through the ``Trainer`` and returns the
-mAP of ``validation(0)``.
+mAP of ``validation(0)``; with ``--model_arch uniposeLSTM`` the video
+model validates per frame over ``--frame_memory``-frame clips.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ def main(argv=None):
     p.add_argument("--frame_memory", default=5, type=int)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--input_size", default=368, type=int,
-                   help="input resolution (LSP only; the reference's is 368)")
+                   help="input resolution (LSP and Penn Action only; the "
+                        "reference's is 368)")
     p.add_argument("--device", default=None,
                    help="default: the CUDA card; 'cpu' runs on the CPU")
     args = p.parse_args(argv)

@@ -1,19 +1,21 @@
-"""Training CLI: the entry point of the image training path.
+"""Training CLI: the entry point of the image and video training paths.
 
 Usage (image, Reference: unipose.py:248-275):
     python -m unipose_tpu_torch.cli.train --dataset LSP --train_dir ... --val_dir ... \
         --checkpoint_dir ...
+Usage (video, Reference: uniposeLSTM.py:274-301):
+    python -m unipose_tpu_torch.cli.train --dataset Penn_Action --model_arch uniposeLSTM \
+        --train_dir penn/ --val_dir penn/ --checkpoint_dir ...
 Runs on the CUDA card; ``--device cpu`` runs on the CPU (the tests do).
 
 Counterpart of ``unipose_tpu/cli/train.py``, with the same flags and
-defaults, plus ``--device``, ``--input_size`` (LSP only: the other datasets'
-loaders resize to 368) and ``--profile_epoch`` (the epoch that
-``--profile_dir`` traces, with ``torch.profiler``).  ``--model_arch
-uniposeLSTM`` parses and gives the video defaults, but the ``Trainer``
-raises for it until video training is ported (ROADMAP.md Queue 1 item 4);
-``--time_parallel`` above 1 exits (Queue 1 item 6).  Flags are not
-silently overridden after parsing (unipose.py:261-267 hardcodes paths over
-the CLI values); presets supply defaults instead.
+defaults (video: clip batch 1, sigma 1, ``--frame_memory`` frames a clip),
+plus ``--device``, ``--input_size`` (LSP and Penn Action only: the other
+datasets' loaders resize to 368) and ``--profile_epoch`` (the epoch that
+``--profile_dir`` traces, with ``torch.profiler``).  ``--time_parallel``
+above 1 exits (ROADMAP.md Queue 1 item 6).  Flags are not silently
+overridden after parsing (unipose.py:261-267 hardcodes paths over the CLI
+values); presets supply defaults instead.
 """
 
 from __future__ import annotations
@@ -69,7 +71,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="video only: shard each clip's frames over this many "
                         "devices (not ported yet: ROADMAP.md Queue 1 item 6)")
     p.add_argument("--input_size", default=368, type=int,
-                   help="input resolution (LSP only; the reference's is 368)")
+                   help="input resolution (LSP and Penn Action only; the "
+                        "reference's is 368)")
     p.add_argument("--device", default=None,
                    help="default: the CUDA card; 'cpu' runs on the CPU")
     return p
@@ -115,11 +118,14 @@ def configs_from_args(args) -> tuple:
     return model_config, train_config
 
 
+RESIZABLE = ("LSP", "Penn_Action")  # the loaders that honour input_size
+
+
 def dataset_spec(dataset: str, input_size: int):
-    """The dataset's spec at ``input_size``; only the LSP loaders honour a
-    size other than the reference's 368."""
-    if input_size != 368 and dataset != "LSP":
-        raise SystemExit(f"--input_size {input_size}: only the LSP loaders resize to it")
+    """The dataset's spec at ``input_size``; only the LSP and Penn Action
+    loaders honour a size other than the reference's 368."""
+    if input_size != 368 and dataset not in RESIZABLE:
+        raise SystemExit(f"--input_size {input_size}: only the LSP and Penn Action loaders resize to it")
     return dataclasses.replace(DATASETS[dataset], input_size=input_size)
 
 

@@ -171,6 +171,13 @@ class ModelConfig:
     head_positive_bias: bool = False
     # Video variant only: number of ConvLSTM rollout frames (a chunk).
     frame_memory: int = 5
+    # Video training only: recompute the ConvLSTM cell of each frame in the
+    # backward instead of keeping its activations (a checkpoint a frame).
+    remat_scan: bool = False
+    # Video training only: recompute each bottleneck of the per-frame
+    # backbone in the backward (``ResNet101(remat_blocks=True)``): its
+    # activations, which grow with B*T, are what long rollouts run out of.
+    remat_tower: bool = False
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from unipose_tpu_torch.core.config import DatasetSpec
-from unipose_tpu_torch.train.steps import make_centermaps, preprocess_images
+from unipose_tpu_torch.train.steps import forward_video_nhwc
 
 
 def make_stream_step(model: torch.nn.Module, spec: DatasetSpec) -> Callable:
@@ -27,10 +27,7 @@ def make_stream_step(model: torch.nn.Module, spec: DatasetSpec) -> Callable:
     @torch.no_grad()
     def step(frames: torch.Tensor, centers: torch.Tensor, state: Optional[tuple] = None):
         model.eval()
-        x = preprocess_images(frames).permute(0, 1, 4, 2, 3)
-        cm = make_centermaps(centers, spec).permute(0, 1, 4, 2, 3)
-        heat, state = model(x, cm, initial_state=state)
-        return heat.permute(0, 1, 3, 4, 2), state
+        return forward_video_nhwc(model, frames, centers, spec, state)
 
     return step
 

@@ -13,15 +13,25 @@ Module names are the ``state_dict`` keys: ``conv1`` (or ``conv1_s2d`` with
 
 In eval mode the stem (conv, BN, ReLU, max pool) is the fused kernel
 ``fused_stem`` on folded weights; train mode runs the modules.
+
+``remat_blocks`` (JAX resnet.py:122-150): in train mode under autograd each
+bottleneck is a ``torch.utils.checkpoint`` segment, so the backward keeps
+only block boundaries and recomputes one block at a time.  The recompute
+runs the block's BatchNorms again in train mode; they normalise with the
+batch's moments as the first pass did, but must not update their running
+statistics a second time (Flax's functional collections update them once):
+``_bn_stats_frozen`` hands them stand-ins for the recompute.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from unipose_tpu_torch.models.layers import batch_norm, conv
 from unipose_tpu_torch.ops.kernels.fused_stem import cast_folded, fold_stem_params, fused_stem
@@ -89,9 +99,61 @@ class Bottleneck(nn.Module):
         return self.relu(out + residual)
 
 
+@contextlib.contextmanager
+def _bn_stats_frozen(module: nn.Module):
+    """Inside the block, ``module``'s BatchNorms update stand-ins for their
+    running statistics and ``num_batches_tracked`` (copies, dropped on the
+    way out), so the real buffers stay as the first pass left them.  The
+    BatchNorms still get running statistics to pass, so the recompute saves
+    the same tensors for the backward as the first pass did; in train mode
+    they normalise with the batch's moments either way."""
+    names = ("running_mean", "running_var", "num_batches_tracked")
+    kept = [(m, [getattr(m, n) for n in names])
+            for m in module.modules() if isinstance(m, nn.BatchNorm2d)]
+    for m, buffers in kept:
+        for n, t in zip(names, buffers):
+            setattr(m, n, t.clone())
+    try:
+        yield
+    finally:
+        for m, buffers in kept:
+            for n, t in zip(names, buffers):
+                setattr(m, n, t)
+
+
+def checkpointed(block: nn.Module, *args):
+    """``block(*args)`` as a checkpoint segment: its activations are freed
+    after the forward and recomputed, with its BatchNorms' statistics
+    frozen, when the backward reaches it.  No random op lies inside a
+    bottleneck or a ConvLSTM cell (the decoder's dropout is outside every
+    segment), so the RNG state is neither saved nor restored."""
+    return torch.utils.checkpoint.checkpoint(
+        block, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _bn_stats_frozen(block)),
+    )
+
+
+class Stage(nn.Sequential):
+    """Bottlenecks named '0'..'n-1' (an ``nn.Sequential``, so the keys stay
+    ``layer{i}.{j}.*``); with ``remat`` each is a checkpoint segment in
+    train mode under autograd."""
+
+    def __init__(self, *blocks: nn.Module, remat: bool = False):
+        super().__init__(*blocks)
+        self.remat = remat
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return super().forward(x)
+        for block in self:
+            x = checkpointed(block, x)
+        return x
+
+
 def _stage(
-    inplanes: int, planes: int, strides: Sequence[int], dilations: Sequence[int]
-) -> nn.Sequential:
+    inplanes: int, planes: int, strides: Sequence[int], dilations: Sequence[int],
+    remat: bool = False,
+) -> Stage:
     """Bottlenecks named '0'..'n-1'; the first carries the stride and the
     downsample (resnet.py:77-92)."""
     blocks = []
@@ -99,7 +161,7 @@ def _stage(
         blocks.append(
             Bottleneck(inplanes if i == 0 else planes * 4, planes, s, d, has_downsample=i == 0)
         )
-    return nn.Sequential(*blocks)
+    return Stage(*blocks, remat=remat)
 
 
 class ResNet101(nn.Module):
@@ -108,6 +170,9 @@ class ResNet101(nn.Module):
     ``stem_s2d``: the stem conv is ``conv1_s2d``, a 4x4 stride-1 conv over
     space-to-depth(2) input, padded ((2, 1), (2, 1)): the exact rewrite of
     the 7x7/2 conv (JAX resnet.py:162, :186-196).
+
+    ``remat_blocks``: every bottleneck of the four stages is a checkpoint
+    segment in training (JAX resnet.py:170); the stem is not, as in JAX.
     """
 
     # The eval-mode stem; a test may set it on an instance to the plain
@@ -120,6 +185,7 @@ class ResNet101(nn.Module):
         layers: Tuple[int, int, int, int] = (3, 4, 23, 3),
         multi_grid: Tuple[int, ...] = (1, 2, 4),
         stem_s2d: bool = False,
+        remat_blocks: bool = False,
     ):
         super().__init__()
         if output_stride == 16:
@@ -141,7 +207,8 @@ class ResNet101(nn.Module):
         def stage(i, inplanes, planes):
             n = layers[i]
             return _stage(
-                inplanes, planes, [strides[i]] + [1] * (n - 1), [dilations[i]] * n
+                inplanes, planes, [strides[i]] + [1] * (n - 1), [dilations[i]] * n,
+                remat=remat_blocks,
             )
 
         self.layer1 = stage(0, 64, 64)
@@ -153,6 +220,7 @@ class ResNet101(nn.Module):
             512,
             [strides[3]] + [1] * (len(multi_grid) - 1),
             [m * dilations[3] for m in multi_grid],
+            remat=remat_blocks,
         )
 
     def _folded_stem(self, dtype: torch.dtype):

@@ -93,6 +93,8 @@ def build_model(
             layers=layers,
             freeze_bn=config.freeze_bn,
             head_positive_bias=config.head_positive_bias,
+            remat_scan=config.remat_scan,
+            remat_tower=config.remat_tower,
         )
     if config.variant != "image":
         raise ValueError(f"unknown variant {config.variant!r}")

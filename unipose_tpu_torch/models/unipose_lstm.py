@@ -20,6 +20,13 @@ and the gate arithmetic run in a loop over T.  Gates and carry are f32 under
 a bf16 compute dtype; ``hide`` goes back to the compute dtype for the next
 conv and for the head.
 
+Training (JAX :131-138, :210-221, :266-270): in train mode the tower's
+BatchNorms take their moments over the B*T frames, and the decoder's
+dropout draws from the train state's generator.  ``remat_tower`` makes each
+backbone bottleneck a checkpoint segment (``ResNet101(remat_blocks=True)``);
+``remat_scan`` makes each frame's ConvLSTM step one, under autograd only
+(the x-gates, batched over the frames, stay outside it).
+
 Module names are the reference's ``state_dict`` keys: the per-gate convs
 ``lstm_0.conv_{g,i,o}_lstm`` and ``lstm.conv_{g,i,o,f}{x,h}_lstm``, and the
 head at the top level as ``conv1``..``conv5``.  The cell concatenates its
@@ -37,7 +44,7 @@ import torch.nn.functional as F
 
 from unipose_tpu_torch.models.decoder import Decoder
 from unipose_tpu_torch.models.layers import conv
-from unipose_tpu_torch.models.resnet import ResNet101
+from unipose_tpu_torch.models.resnet import ResNet101, checkpointed
 from unipose_tpu_torch.models.wasp import WASP
 from unipose_tpu_torch.ops.pooling import avg_pool2d
 
@@ -107,14 +114,18 @@ class UniPoseLSTM(nn.Module):
         layers: Tuple[int, int, int, int] = (3, 4, 23, 3),
         freeze_bn: bool = False,
         head_positive_bias: bool = False,
+        remat_scan: bool = False,
+        remat_tower: bool = False,
     ):
         super().__init__()
         self.num_classes = num_classes
         self.stride = stride
         self.compute_dtype = compute_dtype
         self.freeze_bn = freeze_bn
+        self.remat_scan = remat_scan
         ch = num_classes + 2
-        self.backbone = ResNet101(output_stride=output_stride, layers=layers)
+        self.backbone = ResNet101(output_stride=output_stride, layers=layers,
+                                  remat_blocks=remat_tower)
         # the video WASP has no BN in its GAP branch (waspVideo.py:56-59)
         self.wasp = WASP(output_stride=output_stride, double_conv2=wasp_double_conv2,
                          gap_batchnorm=False)
@@ -173,10 +184,11 @@ class UniPoseLSTM(nn.Module):
             hides = []
             rest = z
         state = (cell.float(), hide.float())
+        remat = self.remat_scan and self.training and torch.is_grad_enabled()
         if rest.shape[1]:
             xg = self.lstm.x_gates(rest.reshape(-1, *rest.shape[2:])).reshape(b, rest.shape[1], -1, h8, w8)
             for k in range(rest.shape[1]):
-                state = self.lstm(state, xg[:, k])
+                state = checkpointed(self.lstm, state, xg[:, k]) if remat else self.lstm(state, xg[:, k])
                 hides.append(state[1].to(z.dtype))
 
         hides = torch.stack(hides, dim=1).reshape(b * t, -1, h8, w8)

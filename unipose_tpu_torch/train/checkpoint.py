@@ -149,7 +149,12 @@ class CheckpointManager:
 
 def warm_start_from_torch(state, torch_path: str):
     """Key-intersection warm start of ``state.model`` from a reference
-    ``*.pth.tar`` (unipose.py:78-90 semantics).  Returns ``state``."""
+    ``*.pth.tar`` (unipose.py:78-90 semantics).  Returns ``state``.
+
+    The JAX signature's ``variant`` picks a layout conversion there; the
+    port's modules carry the reference's keys in both variants (the LSTM's
+    per-gate convs and top-level head too), so the intersection loads
+    either without one."""
     report = load_state_dict_intersection(state.model, load_torch_checkpoint(torch_path))
     print(f"warm start: loaded {len(report['loaded'])} tensors, skipped {len(report['skipped'])}")
     return state

@@ -1,7 +1,7 @@
-"""Training harness, image path: init, training, validation.
+"""Training harness, image and video: init, training, validation, the demo.
 
 Counterpart of ``unipose_tpu/train/trainer.py`` (Reference: unipose.py:
-37-193):
+37-246 image, uniposeLSTM.py:37-270 video):
   * the dataset loaders from ``train_dir``/``val_dir`` (``get_dataloader``);
   * per-update step-decay LR (the scheduler in the train state);
   * per-epoch validation with AP/PCK/PCKh accumulated with per-joint
@@ -10,7 +10,13 @@ Counterpart of ``unipose_tpu/train/trainer.py`` (Reference: unipose.py:
   * a checkpoint an epoch to ``checkpoint_dir``, and auto-resume from the
     newest one;
   * a TSV metric log and the parameter summary;
-  * optional warm start from a reference ``*.pth.tar`` (unipose.py:78-90).
+  * optional warm start from a reference ``*.pth.tar`` (unipose.py:78-90);
+  * ``test``: one image through the model, a skeleton and per-channel
+    heatmap overlays (unipose.py:197-246).
+
+The video variant (``ModelConfig(variant="lstm")``) trains on clip batches
+(``frames``, ``kpts``, ``centers``) of ``frame_memory`` frames and validates
+per frame, in dataset order.
 
 One deliberate difference: the train step runs the fused loss
 (``heatmap_mse``, the same function as the materialised MSE, whose targets
@@ -19,6 +25,7 @@ never exist in memory), where the JAX ``Trainer`` builds its step without it.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -30,17 +37,18 @@ from unipose_tpu_torch.core.config import DATASETS, ModelConfig, TrainConfig, ef
 from unipose_tpu_torch.data.loader import get_dataloader
 from unipose_tpu_torch.eval.metrics import accuracy_from_coords
 from unipose_tpu_torch.eval.report import print_accuracies
+from unipose_tpu_torch.ops.resize import bilinear_resize
 from unipose_tpu_torch.train.checkpoint import (
     CheckpointManager,
     save_checkpoint,
     warm_start_from_torch,
 )
 from unipose_tpu_torch.train.state import create_train_state
-from unipose_tpu_torch.train.steps import make_train_step, make_val_step
+from unipose_tpu_torch.train.steps import _eval_mode, make_train_step, make_val_step, preprocess_images
 from unipose_tpu_torch.utils.logger import Logger
 from unipose_tpu_torch.utils.summary import count_params, per_module_params
 
-_KEEP = ("image", "kpts")
+_KEEP = ("image", "frames", "kpts", "centers")
 
 
 class Trainer:
@@ -69,11 +77,7 @@ class Trainer:
         # TrainConfig.sigma/stride resolve into the spec here; the loaders
         # and the steps read the spec only.
         self.spec = effective_spec(spec or DATASETS[model_config.dataset], train_config)
-        if self.spec.is_video or model_config.variant == "lstm":
-            raise NotImplementedError(
-                f"{self.spec.name} / {model_config.variant}: video training is "
-                "ROADMAP.md Queue 1 item 4"
-            )
+        self.video = model_config.variant == "lstm"
         device = resolve_device(device)
         self.log_every = log_every
 
@@ -88,6 +92,7 @@ class Trainer:
                 self.spec.stride,
                 train_config.workers,
                 train_config.batch_size,
+                frame_memory=model_config.frame_memory if self.video else None,
                 seed=train_config.seed,
                 val_batch_size=train_config.val_batch_size,
                 input_size=self.spec.input_size,
@@ -109,8 +114,9 @@ class Trainer:
             if self.ckpt_manager.restore_latest(self.state) is not None:
                 print(f"resumed from step {self.state.step} ({train_config.checkpoint_dir})")
 
-        self.train_step = make_train_step(self.model, self.optimizer, self.spec, fused_loss=True)
-        self.val_step = make_val_step(self.model, self.spec)
+        self.train_step = make_train_step(self.model, self.optimizer, self.spec,
+                                          video=self.video, fused_loss=True)
+        self.val_step = make_val_step(self.model, self.spec, video=self.video)
 
         self.is_best = 0.0
         self.best_pck = 0.0
@@ -137,7 +143,7 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _device_batch(self, batch):
-        return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device) for k in _KEEP}
+        return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device) for k in _KEEP if k in batch}
 
     def training(self, epoch: int) -> float:
         print(f"Epoch {epoch}:")
@@ -192,8 +198,8 @@ class Trainer:
     def _device_batch_padded(self, batch, pad_to):
         """Pad a ragged last batch to ``pad_to`` by repeating its last
         sample.  Returns (device batch, real samples, resolved pad size)."""
-        sub = {k: np.asarray(batch[k]) for k in _KEEP}
-        n = sub["image"].shape[0]
+        sub = {k: np.asarray(batch[k]) for k in _KEEP if k in batch}
+        n = sub["kpts"].shape[0]
         if pad_to is None:
             pad_to = n
         if n < pad_to:
@@ -203,8 +209,9 @@ class Trainer:
     def validation(self, epoch: int) -> float:
         """Validation (reference behaviour: unipose.py:133-193) with the
         argmax of predictions and targets on the device and one fetch of
-        all coordinates at the end; metrics per frame, running means gated
-        per joint by visibility (unipose.py:163-176).  Returns the mAP."""
+        all coordinates at the end; metrics per frame (a clip's frames in
+        order), running means gated per joint by visibility
+        (unipose.py:163-176).  Returns the mAP."""
         k = self.model_config.num_classes
         AP = np.zeros(k + 1)
         PCK = np.zeros(k + 1)
@@ -229,7 +236,10 @@ class Trainer:
         for bi, n_valid in enumerate(valids):
             for s in range(n_valid):
                 i = bi * pad_to + s
-                frames.append((preds[i], tgts[i]))
+                if self.video:
+                    frames.extend((preds[i, j], tgts[i, j]) for j in range(preds.shape[1]))
+                else:
+                    frames.append((preds[i], tgts[i]))
 
         for frame_idx, (p, t) in enumerate(frames):
             acc, acc_pck, acc_pckh, _, _, visible = accuracy_from_coords(
@@ -266,3 +276,32 @@ class Trainer:
                 [epoch, self._epoch_stats.get(epoch, float("nan")), mAP, mPCK, mPCKh]
             )
         return mAP
+
+    # ------------------------------------------------------------------
+    def test(self, image_path: str, out_dir: str = "samples"):
+        """Demo inference on one image (Reference: unipose.py:197-246
+        ``Trainer.test``): the image resized to the input size, the eval
+        forward (the video variant as a one-frame rollout with a zero
+        centermap) and the align-corners upsample of the heatmaps to the
+        input size on the model's device; writes ``<out_dir>/pose.png``
+        (the skeleton) and ``<out_dir>/heat/unipose<c>.png`` (a JET overlay
+        a channel).  Returns the keypoints, [x, y] a joint."""
+        import cv2
+
+        from unipose_tpu_torch.viz.draw import draw_paint, get_kpts, heatmap_overlays
+
+        size = self.spec.input_size
+        img = np.asarray(cv2.resize(cv2.imread(image_path), (size, size)), np.float32)
+        x = preprocess_images(torch.from_numpy(img[None]).to(self.device)).permute(0, 3, 1, 2)
+        with _eval_mode(self.model):
+            if self.video:
+                heat = self.model(x[:, None], torch.zeros_like(x[:, None, :1]))[0][:, 0]
+            else:
+                heat = self.model(x)
+            heat = bilinear_resize(heat, (size, size)).permute(0, 2, 3, 1).cpu().numpy()
+        kpts = get_kpts(heat, img_h=float(size), img_w=float(size))
+        os.makedirs(out_dir, exist_ok=True)
+        draw_paint(image_path, kpts, self.model_config.dataset,
+                   out_path=os.path.join(out_dir, "pose.png"))
+        heatmap_overlays(heat, image_path, out_dir=os.path.join(out_dir, "heat"))
+        return kpts
