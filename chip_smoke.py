@@ -23,7 +23,13 @@ uniposeLSTM`` on Penn Action files (checkpoints, resume, ``cli/eval.py``);
 ten bf16 video steps on one clip, which must lower the loss; the BBC
 long-video evaluation (a 40-frame video streamed in 5-frame chunks, per
 frame PCK); and the demo (``cli/demo.py``, ``Trainer.test`` of the video
-model).  Prints one JSON object a phase, a
+model).  After the video servers come the int8 front end's ``conv_i8``
+kernel against its exact
+plain version at every front-end shape, the int8 image
+and video forwards, the serving artifacts of ``compat/export.py`` built on the card
+and held against the live models (``export``), and ``cli/serve.py
+--artifact`` on each of them (``serve_artifact``).  Prints one JSON object
+a phase, a
 ``kernels`` line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA card or any phase fails.
@@ -43,6 +49,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -81,7 +88,7 @@ from unipose_tpu_torch.ops.kernels import fused_stem as fs
 from unipose_tpu_torch.ops.kernels import heatmap_mse as hm
 from unipose_tpu_torch.ops.kernels import wasp_cascade as wc
 from unipose_tpu_torch.train.state import create_train_state
-from unipose_tpu_torch.train.steps import make_targets, make_train_step, mse, preprocess_images
+from unipose_tpu_torch.train.steps import make_centermaps, make_targets, make_train_step, mse, preprocess_images
 from unipose_tpu_torch.train.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent
@@ -102,6 +109,10 @@ KERNEL_BATCHES = (1, 32)
 # bbc_stream_eval), a 20-frame rollout (video_stream's f32 check) and a
 # validation batch (8 clips of 5 frames, the last batch padded: train_video_cli)
 VIDEO_KERNEL_BATCHES = (5, 20, 40)
+# the serving paths' image WASP batches besides those: int8_forward's image
+# batch (2: split-K cuts K into 4 slices) and the image artifact's baked
+# batch (4: export, serve_artifact), held at S = 23 in both dtypes
+SERVING_KERNEL_BATCHES = (2, 4)
 MODEL_BATCHES = (1, 32)
 MODEL_PAIRS = 20
 
@@ -123,10 +134,11 @@ DPRED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 TRAIN_BATCH = 8  # the reference's batch (cli/train.py:121)
 TRAIN_TIMED_STEPS = 10
 
-# fused_stem: (batch, H, W); 368x368 at batch 1 (a request), 5 (a video
-# chunk) and 32, a 128x128 input and an odd size.  Tolerances as TOL: f32
-# sums in another order; bf16 one rounding at the output that may flip.
-STEM_CASES = ((1, 368, 368), (5, 368, 368), (32, 368, 368), (4, 128, 128), (2, 367, 301))
+# fused_stem: (batch, H, W); 368x368 at batch 1 (a request), 4 (the image
+# artifact's baked batch), 5 (a video chunk) and 32, a 128x128 input and an
+# odd size.  Tolerances as TOL: f32 sums in another order; bf16 one
+# rounding at the output that may flip.
+STEM_CASES = ((1, 368, 368), (4, 368, 368), (5, 368, 368), (32, 368, 368), (4, 128, 128), (2, 367, 301))
 STEM_MAIN = (torch.bfloat16, 1, 368, 368)  # the image request's stem
 VIDEO = dict(dataset="Penn_Action", num_classes=13, variant="lstm")  # BASELINE config 3
 VIDEO_FRAMES = 20
@@ -391,8 +403,9 @@ def phase_kernel(dev, gpu: str, flush: torch.Tensor) -> dict:
     """wasp_cascade against wasp_cascade_reference on the card, with the
     unfused cuBLAS/cuDNN version timed beside it; two calls must give the
     same bits.  Device time per call at bf16 S = 23, batch 1 and 32.  Then
-    the video WASP (no BN in its GAP branch) at S = 23 and the video paths'
-    batches, VIDEO_KERNEL_BATCHES, in both dtypes."""
+    the serving batches SERVING_KERNEL_BATCHES at S = 23, and the video WASP
+    (no BN in its GAP branch) at S = 23 and the video paths' batches,
+    VIDEO_KERNEL_BATCHES, in both dtypes."""
     from unipose_tpu_torch.models.wasp import WASP
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -435,15 +448,19 @@ def phase_kernel(dev, gpu: str, flush: torch.Tensor) -> dict:
         wasp = WASP(gap_batchnorm=not video)
         load_numpy_state_dict(wasp, random_state_dict(wasp, seed=11 + video))
         folded32 = {k: v.to(dev) for k, v in wc.fold_wasp_params(wasp).items()}
-        cases = ({23: DILATIONS[23]}, VIDEO_KERNEL_BATCHES) if video else (DILATIONS, KERNEL_BATCHES)
+        # (dilations by S, batches, the row's label)
+        cases = ([({23: DILATIONS[23]}, VIDEO_KERNEL_BATCHES, {"variant": "video"})] if video else
+                 [(DILATIONS, KERNEL_BATCHES, {}),
+                  ({23: DILATIONS[23]}, SERVING_KERNEL_BATCHES, {"paths": "int8_forward, export, serve_artifact"})])
         for dtype in (torch.float32, torch.bfloat16):
             folded = wc.cast_folded(folded32, dtype)
-            for s, dil in cases[0].items():
-                unfused = unfused_wasp(folded, dtype, dil)
-                for b in cases[1]:
-                    got = row(folded, dtype, s, dil, b, unfused, **({"variant": "video"} if video else {}))
-                    if (dtype, s, b) == MAIN_CASE and not video:
-                        main = got
+            for dilations, batches, label in cases:
+                for s, dil in dilations.items():
+                    unfused = unfused_wasp(folded, dtype, dil)
+                    for b in batches:
+                        got = row(folded, dtype, s, dil, b, unfused, **label)
+                        if (dtype, s, b) == MAIN_CASE and not label:
+                            main = got
     return main
 
 
@@ -1785,6 +1802,479 @@ def phase_serve(gpu: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: conv_i8, the int8 front end, exported artifacts and their server
+# ---------------------------------------------------------------------------
+
+PEAK_INT8_OPS = 1979e12  # dense int8 on the tensor cores
+# Every distinct conv of the int8 front end at 368x368: (name, Cin, Cout, k,
+# stride, padding, input side, launches in one forward); 24 launches in all.
+CONV_I8_SHAPES = (
+    ("conv1 7x7/2", 3, 64, 7, 2, 3, 368, 1),
+    ("l1 1x1 64-64", 64, 64, 1, 1, 0, 92, 1),
+    ("l1 3x3 64", 64, 64, 3, 1, 1, 92, 3),
+    ("l1 1x1 64-256", 64, 256, 1, 1, 0, 92, 4),
+    ("l1 1x1 256-64", 256, 64, 1, 1, 0, 92, 2),
+    ("l2 1x1 256-128", 256, 128, 1, 1, 0, 92, 1),
+    ("l2 3x3/2 128", 128, 128, 3, 2, 1, 92, 1),
+    ("l2 1x1 128-512", 128, 512, 1, 1, 0, 46, 4),
+    ("l2 down 1x1/2 256-512", 256, 512, 1, 2, 0, 92, 1),
+    ("l2 1x1 512-128", 512, 128, 1, 1, 0, 46, 3),
+    ("l2 3x3 128", 128, 128, 3, 1, 1, 46, 3),
+)
+CONV_I8_MAIN = ("l1 1x1 64-256", 1)  # the kernels line's row: 4 launches a forward, a library twin
+CONV_I8_BATCHES = (1, 8)
+ARTIFACT_BATCHES = (1, 32)
+ARTIFACT_PAIRS = 10
+INT8_CALIB = 8  # images the front end's scales are calibrated on, as cli/export does
+OURS_ARTIFACT = {**OURS, "conv_i8": lambda name: "conv_i8_kernel" in name}
+# One kernel that each wrapper call launches exactly once, to count calls in
+# a profile (a WASP call launches ~13 kernels: gap_branch_kernel is one).
+CALL_KERNELS = {"fused_stem": _is_stem_kernel, "wasp_cascade": lambda name: "gap_branch_kernel" in name,
+                "conv_i8": lambda name: "conv_i8_kernel" in name}
+
+
+def profiled_calls(fn, steps: int = 3) -> dict:
+    """Kernel calls a fn() from the profiler's raw events, with the names
+    matched.  A window can lose device events (PERF.md §6), so the
+    wrappers' counters hold the exact counts and this reading must only
+    see each kernel that they count."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+            names[evt.name] = names.get(evt.name, 0) + 1
+    return {
+        "calls": {k: sum(v for n, v in names.items() if match(n)) / steps for k, match in CALL_KERNELS.items()},
+        "kernel_events_per_call": sum(names.values()) / steps,
+        "matched": {n[:60]: v for n, v in names.items() if any(m(n) for m in CALL_KERNELS.values())},
+    }
+
+
+def conv_i8_bound(b: int, cin: int, cout: int, k: int, ho: int, wo: int, h: int, w: int) -> dict:
+    """Least time for one conv_i8 call: the int8 input and weights read once
+    and the int32 output written once; 2 operations a multiply-add, at the
+    H100's dense int8 peak."""
+    ops = 2 * b * ho * wo * cout * k * k * cin
+    nbytes = b * h * w * cin + k * k * cin * cout + b * ho * wo * cout * 4
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return {"gop": ops / 1e9, "mbytes": nbytes / 1e6, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_conv_i8_kernel(dev, gpu: str, flush: torch.Tensor) -> dict:
+    """conv_i8 against conv_i8_reference (an f64 conv: exact) on the card at
+    every distinct front-end shape, batch 1 and 8: the int32 output equal,
+    and the same bits twice.  Beside it the library call where one computes
+    the same function (torch._int_mm on the flattened input, for the 1x1
+    convs; the flattening is not timed) and, for the 3x3 and 7x7 convs, a
+    yardstick that computes another function: cuDNN's bf16 conv at the same
+    shape.  Returns the main row and the per-forward sums."""
+    from unipose_tpu_torch.ops.kernels import conv_i8 as ci8
+
+    gen = torch.Generator().manual_seed(81)
+    main, front = None, {}
+    for name, cin, cout, k, stride, pad, h, per_forward in CONV_I8_SHAPES:
+        for b in CONV_I8_BATCHES:
+            x = torch.randint(-127, 128, (b, h, h, cin), generator=gen, dtype=torch.int8).to(dev)
+            w = torch.randint(-127, 128, (k, k, cin, cout), generator=gen, dtype=torch.int8)
+            packed, w = ci8.pack_weight(w).to(dev), w.to(dev)
+
+            def kernel():
+                return ci8.conv_i8(x, packed, k, k, stride, pad)
+
+            def plain():
+                return ci8.conv_i8_reference(x, w, stride, pad)
+
+            got = kernel()
+            same = bool(torch.equal(got, kernel()))
+            want = plain()
+            torch.cuda.synchronize()
+            ho = wo = ci8.out_size(h, k, stride, pad, 1)
+            row = {"phase": "kernel", "name": "conv_i8", "shape": name, "batch": b,
+                   "in": [b, h, h, cin], "out": [b, ho, wo, cout], "launches_a_forward": per_forward,
+                   "equal": bool(torch.equal(got, want)), "bit_identical_twice": same,
+                   "max_abs_err": int((got.long() - want.long()).abs().max()),
+                   "max_abs_acc": int(want.abs().max()),
+                   "ms": time_ms(kernel, 10, flush), "plain_ms": time_ms(plain, 3, flush),
+                   "device_ms": device_ms(kernel, lambda n: "conv_i8_kernel" in n),
+                   **conv_i8_bound(b, cin, cout, k, ho, wo, h, h), "gpu": gpu}
+            if k == 1:
+                flat = x[:, ::stride, ::stride].reshape(-1, cin).contiguous()
+                # column-major weights: cuBLASLt's int8 product takes its B so
+                wmat = w.reshape(cin, cout).t().contiguous().t()
+                row["library"] = "torch._int_mm"
+                try:
+                    lib = torch._int_mm(flat, wmat)
+                except RuntimeError as e:  # a yardstick only: recorded, not held
+                    row["library_error"], row["library_ms"] = str(e)[:300], None
+                else:
+                    row["library_equal"] = bool(torch.equal(lib.reshape(got.shape), got))
+                    row["library_ms"] = time_ms(lambda: torch._int_mm(flat, wmat), 10, flush)
+                    row["library_device_ms"] = device_breakdown(lambda: torch._int_mm(flat, wmat))["ms"]
+            else:
+                xb = x.float().permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+                wb = w.float().permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+                row["library_ms"] = None
+                row["yardstick"] = "cuDNN bf16 F.conv2d at this shape (another function: no int8 conv in PyTorch)"
+                row["yardstick_ms"] = time_ms(lambda: F.conv2d(xb, wb, stride=stride, padding=pad), 10, flush)
+                row["yardstick_device_ms"] = device_breakdown(
+                    lambda: F.conv2d(xb, wb, stride=stride, padding=pad))["ms"]
+            emit(row)
+            if not (row["equal"] and same and row.get("library_equal", True)):
+                raise AssertionError(f"conv_i8 disagrees with its plain version: {row}")
+            if (name, b) == CONV_I8_MAIN:
+                main = row
+            acc = front.setdefault(b, {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0})
+            for key in acc:
+                acc[key] += per_forward * row[key]
+    emit({"phase": "conv_i8_front_end", "by_batch": front, "launches_a_forward": 24, "gpu": gpu})
+    return {"main": main, "front_end": front}
+
+
+def _launch_counts() -> dict:
+    return {k: v for k, v in kernels.launch_counts().items() if k in OURS_ARTIFACT}
+
+
+def _calibration(dev, shape) -> torch.Tensor:
+    """cli/export.py's calibration batch: (U[0, 1) * 255 - 128) / 256 from a
+    generator seeded 0."""
+    g = torch.Generator().manual_seed(0)
+    return ((torch.rand(shape, generator=g) * 255.0 - 128.0) / 256.0).to(dev)
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def phase_int8_forward(dev, gpu: str, state: dict, video_state: dict) -> dict:
+    """The int8 front end at full width, 368x368: the image forward (bf16
+    layer3 on) against the bf16 live forward, relative L2 < 0.08 (JAX's own
+    bar, tests/test_quant.py:138-141), 24 conv_i8 launches and one WASP;
+    then the video forward on a (1, 5) clip, its gap to the bf16 clip
+    printed and its launches held."""
+    from unipose_tpu_torch.models import quantized
+
+    model = build_model(ModelConfig(compute_dtype=torch.bfloat16))
+    load_numpy_state_dict(model, state)
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    rng = np.random.RandomState(41)
+    pixels = torch.from_numpy(rng.randint(0, 256, (2, 368, 368, 3)).astype(np.uint8)).to(dev)
+    x = preprocess_images(pixels)
+    with torch.no_grad():
+        _, forward = quantized.int8_forward_fn(model, _calibration(dev, (INT8_CALIB, 368, 368, 3)),
+                                               dtype=torch.bfloat16)
+        ref = model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        forward(x)  # cold
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = forward(x)
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+    row = {"phase": "int8_forward", "shape": list(out.shape), "rel_l2_vs_bf16": _rel_l2(out, ref),
+           "max_rel_err_vs_bf16": max_rel_err(out, ref), "tol_rel_l2": 0.08, "launches": counts,
+           "finite": bool(torch.isfinite(out).all())}
+    del model, forward
+    torch.cuda.empty_cache()
+
+    vmodel = build_model(ModelConfig(**VIDEO, compute_dtype=torch.bfloat16))
+    load_numpy_state_dict(vmodel, video_state)
+    vmodel = vmodel.to(dev, memory_format=torch.channels_last).eval()
+    frames = preprocess_images(torch.from_numpy(rng.randint(0, 256, (1, CHUNK, 368, 368, 3)).astype(np.uint8)).to(dev))
+    cm = _server_centermaps(dev, 1, CHUNK)
+    with torch.no_grad():
+        _, vforward = quantized.int8_video_forward_fn(vmodel, _calibration(dev, (2, CHUNK, 368, 368, 3)),
+                                                      dtype=torch.bfloat16)
+        vref, _ = vmodel(frames.permute(0, 1, 4, 2, 3), cm.permute(0, 1, 4, 2, 3))
+        vref = vref.permute(0, 1, 3, 4, 2)
+        kernels.reset_launches()
+        vout = vforward(frames, cm)
+        torch.cuda.synchronize()
+        vcounts = _launch_counts()
+    row["video"] = {"shape": list(vout.shape), "rel_l2_vs_bf16": _rel_l2(vout, vref),
+                    "max_rel_err_vs_bf16": max_rel_err(vout, vref), "launches": vcounts,
+                    "finite": bool(torch.isfinite(vout).all())}
+    row["gpu"] = gpu
+    emit(row)
+    del vmodel, vforward
+    torch.cuda.empty_cache()
+    want = {"fused_stem": 0, "wasp_cascade": 1, "conv_i8": 24}
+    if not (row["rel_l2_vs_bf16"] < 0.08 and counts == want and row["finite"]
+            and vcounts == want and row["video"]["finite"] and out.shape == (2, 46, 46, 15)):
+        raise AssertionError(f"the int8 forward failed its checks: {row}")
+    return counts
+
+
+def _server_centermaps(dev, b: int, t: int) -> torch.Tensor:
+    """The servers' centermap, a sigma-3 Gaussian at the frame centre, (B, T,
+    368, 368, 1) on the card."""
+    return torch.from_numpy(serve._centermaps(b, t, 368)).to(dev)
+
+
+def phase_export(dev, gpu: str, flush: torch.Tensor, state: dict, video_state: dict) -> dict:
+    """cli/export's artifacts at full width, built on the card and loaded
+    back from their bytes in this process: the bf16 raw-uint8 image
+    artifact at baked batch 4, the f32 image artifact at batch 1, the bf16
+    streaming pair at chunk (1, 5), and the bf16 int8 image artifact at
+    batch 1.  Each is held against the live model (f32: 1e-5 with TF32 off;
+    bf16: TOL[bf16]), the f32 streaming pair over 10 frames against the live
+    stream at reduced depth (1e-4), and each call's launches are counted
+    from the wrappers and from the profiler's raw events.  Then artifact
+    forward against live forward, bf16 batch 1 and 32, in turns, with the
+    card's idle share of each.  Returns the blobs and the export path's
+    counts (the four artifacts called once each, the stream for two
+    chunks)."""
+    from unipose_tpu_torch.compat import export as artifact
+    from unipose_tpu_torch.models import quantized
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(42)
+    bf16 = build_model(ModelConfig(compute_dtype=torch.bfloat16))
+    load_numpy_state_dict(bf16, state)
+    bf16 = bf16.to(dev, memory_format=torch.channels_last).eval()
+    f32 = build_model(ModelConfig())
+    load_numpy_state_dict(f32, state)
+    f32 = f32.to(dev, memory_format=torch.channels_last).eval()
+    vbf16 = build_model(ModelConfig(**VIDEO, compute_dtype=torch.bfloat16))
+    load_numpy_state_dict(vbf16, video_state)
+    vbf16 = vbf16.to(dev, memory_format=torch.channels_last).eval()
+
+    blobs, rows, seconds = {}, {}, {}
+
+    def timed_export(name, fn):
+        t0 = time.perf_counter()
+        blobs[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+
+    with torch.no_grad():
+        _, int8_forward = quantized.int8_forward_fn(bf16, _calibration(dev, (INT8_CALIB, 368, 368, 3)),
+                                                    dtype=torch.bfloat16)
+    timed_export("image_bf16_u8_b4", lambda: artifact.export_inference(bf16, (4, 368, 368, 3), raw_uint8=True))
+    timed_export("image_f32_b1", lambda: artifact.export_inference(f32, (1, 368, 368, 3)))
+    timed_export("stream_bf16_1x5", lambda: artifact.export_video_stream(vbf16, (1, CHUNK, 368, 368, 3),
+                                                                          raw_uint8=True))
+    timed_export("int8_bf16_b1", lambda: artifact.export_inference(bf16, (1, 368, 368, 3), forward=int8_forward))
+    timed_export("clip_bf16_u8_1x5", lambda: artifact.export_inference(vbf16, (1, CHUNK, 368, 368, 3),
+                                                                        video=True, raw_uint8=True))
+    t0 = time.perf_counter()
+    programs = {name: (artifact.load_video_stream(blob) if artifact.is_stream_artifact(blob)
+                       else artifact.load_exported(blob)) for name, blob in blobs.items()}
+    load_s = time.perf_counter() - t0
+    image_b4, image_f32 = programs["image_bf16_u8_b4"].module(), programs["image_f32_b1"].module()
+    init, cont = (p.module() for p in programs["stream_bf16_1x5"])
+    int8 = programs["int8_bf16_b1"].module()
+
+    pixels4 = torch.from_numpy(rng.randint(0, 256, (4, 368, 368, 3)).astype(np.uint8)).to(dev)
+    clip = torch.from_numpy(rng.randint(0, 256, (1, 2 * CHUNK, 368, 368, 3)).astype(np.uint8)).to(dev)
+    cm = _server_centermaps(dev, 1, CHUNK)
+
+    def live_image(model, x):
+        return model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def stream_artifact(frames):
+        heat1, cell, hide = init(frames[:, :CHUNK], cm)
+        heat2, _, _ = cont(frames[:, CHUNK:], cm, cell, hide)
+        return torch.cat([heat1, heat2], dim=1)
+
+    def stream_live(model, frames):  # the live model in the same chunks
+        x = preprocess_images(frames).permute(0, 1, 4, 2, 3)
+        c = cm.permute(0, 1, 4, 2, 3)
+        heat1, state = model(x[:, :CHUNK], c)
+        heat2, _ = model(x[:, CHUNK:], c, initial_state=state)
+        return torch.cat([heat1, heat2], dim=1).permute(0, 1, 3, 4, 2)
+
+    calls = {
+        "image_bf16_u8_b4": (lambda: image_b4(pixels4), lambda: live_image(bf16, preprocess_images(pixels4)),
+                             TOL[torch.bfloat16], {"fused_stem": 1, "wasp_cascade": 1, "conv_i8": 0}),
+        "image_f32_b1": (lambda: image_f32(preprocess_images(pixels4[:1])),
+                         lambda: live_image(f32, preprocess_images(pixels4[:1])), 1e-5,
+                         {"fused_stem": 1, "wasp_cascade": 1, "conv_i8": 0}),
+        "stream_bf16_1x5": (lambda: stream_artifact(clip), lambda: stream_live(vbf16, clip), TOL[torch.bfloat16],
+                            {"fused_stem": 2, "wasp_cascade": 2, "conv_i8": 0}),
+        "int8_bf16_b1": (lambda: int8(preprocess_images(pixels4[:1])),
+                         lambda: int8_forward(preprocess_images(pixels4[:1])), TOL[torch.bfloat16],
+                         {"fused_stem": 0, "wasp_cascade": 1, "conv_i8": 24}),
+    }
+    with torch.no_grad():
+        for name, (fn, _, _, _) in calls.items():
+            fn()  # cold: cuDNN picks its algorithms
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        outs = {name: fn() for name, (fn, _, _, _) in calls.items()}
+        torch.cuda.synchronize()
+        path_counts = _launch_counts()
+        for name, (fn, live, tol, want) in calls.items():
+            kernels.reset_launches()
+            fn()
+            torch.cuda.synchronize()
+            counts = _launch_counts()
+            prof = profiled_calls(fn)
+            ref = live()
+            err = max_rel_err(outs[name], ref)
+            rows[name] = {"export_s": seconds[name], "bytes": len(blobs[name]), "max_rel_err_vs_live": err,
+                          "tol": tol, "launches": counts,
+                          "profiler": prof,
+                          "shape": list(outs[name].shape), "finite": bool(torch.isfinite(outs[name]).all())}
+            if not (err <= tol and counts == want and rows[name]["finite"]
+                    and all((prof["calls"][k] > 0) == (v > 0) for k, v in want.items())):
+                emit({"phase": "export", "rows": rows})
+                raise AssertionError(f"the {name} artifact failed its checks: {rows[name]}")
+    del programs, image_b4, image_f32, int8, init, cont
+
+    # the f32 streaming pair over 10 frames against the live stream, at
+    # reduced depth (as video_stream's: the seeded full-depth decoder's ~1e7
+    # makes the f32 chunk-vs-rollout order visible)
+    small = build_model(ModelConfig(**VIDEO), layers=(1, 1, 1, 1))
+    load_numpy_state_dict(small, random_state_dict(small, seed=1))
+    small = small.to(dev, memory_format=torch.channels_last).eval()
+    s_init, s_cont = (p.module() for p in artifact.load_video_stream(
+        artifact.export_video_stream(small, (1, CHUNK, 368, 368, 3), raw_uint8=True)))
+    centers = (rng.rand(1, 2 * CHUNK, 2) * 368).astype(np.float32)
+    cms = make_centermaps(torch.from_numpy(centers).to(dev), DATASETS["Penn_Action"])  # stream_video's
+    with torch.no_grad():
+        h1, cell, hide = s_init(clip[:, :CHUNK], cms[:, :CHUNK])
+        h2, _, _ = s_cont(clip[:, CHUNK:], cms[:, CHUNK:], cell, hide)
+        got = torch.cat([h1, h2], dim=1).cpu()
+    want = torch.from_numpy(stream_video(small, clip.cpu().numpy().astype(np.float32), centers,
+                                         DATASETS["Penn_Action"], chunk=CHUNK))
+    stream_err = max_rel_err(got, want)
+    del small, s_init, s_cont
+
+    # artifact forward against the live forward, bf16, in turns
+    timing = {}
+    for b in ARTIFACT_BATCHES:
+        program = artifact.load_exported(artifact.export_inference(bf16, (b, 368, 368, 3), raw_uint8=True)).module()
+        xb = torch.from_numpy(rng.randint(0, 256, (b, 368, 368, 3)).astype(np.uint8)).to(dev)
+        with torch.no_grad():
+            times = paired_ms(lambda: program(xb), lambda: live_image(bf16, preprocess_images(xb)),
+                              ARTIFACT_PAIRS, flush)
+            timing[b] = {"artifact_ms": times["a"]["median"], "live_ms": times["b"]["median"], "paired": times,
+                         "artifact_profile": profile(lambda: program(xb), 3, OURS_ARTIFACT),
+                         "live_profile": profile(lambda: live_image(bf16, preprocess_images(xb)), 3)}
+        del program
+    emit({"phase": "export", "rows": rows, "load_s_all": load_s, "path_launches": path_counts,
+          "f32_stream_10_frames_vs_live_stream_video_reduced_depth": stream_err, "stream_tol": 1e-4,
+          "clip_artifact": {"export_s": seconds["clip_bf16_u8_1x5"], "bytes": len(blobs["clip_bf16_u8_1x5"])},
+          "forward_bf16": timing, "gpu": gpu})
+    want_path = {"fused_stem": 4, "wasp_cascade": 5, "conv_i8": 24}
+    if not (stream_err < 1e-4 and path_counts == want_path):
+        raise AssertionError(f"the export path failed: stream {stream_err}, launches {path_counts}")
+    del bf16, f32, vbf16
+    torch.cuda.empty_cache()
+    return {"blobs": blobs, "counts": path_counts}
+
+
+def phase_serve_artifact(dev, gpu: str, blobs: dict, state: dict) -> dict:
+    """cli/serve.make_server --artifact on each artifact, with the counts
+    set to 0 before the first server is built and read after the last one
+    stops: 16 concurrent images against the baked batch of 4 (the batches
+    the server actually formed, each padded batch's keypoints checked
+    against the live bf16 model's on the same batch); a 12-frame clip against
+    the streaming pair (3 chunks);
+    a short clip padded and a too-long clip refused against the clip
+    artifact; the int8 artifact answering; and the clip decode route."""
+    import cv2
+
+    import shutil
+
+    rng = np.random.RandomState(43)
+    out = {}
+    live = build_model(ModelConfig(compute_dtype=torch.bfloat16))
+    load_numpy_state_dict(live, state)
+    live = live.to(dev, memory_format=torch.channels_last).eval()
+    tmp = tempfile.mkdtemp(prefix="artifacts")
+    paths = {}
+    for name, blob in blobs.items():
+        paths[name] = os.path.join(tmp, f"{name}.pt2")
+        with open(paths[name], "wb") as f:
+            f.write(blob)
+    kernels.reset_launches()
+    for name in ("image_bf16_u8_b4", "stream_bf16_1x5", "clip_bf16_u8_1x5", "int8_bf16_b1"):
+        args = serve.parse_args(["--artifact", paths[name], "--port", "0", "--batch_wait_ms", "20"])
+        server = serve.make_server(args)
+        svc = server.service
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            row = {"healthz": health}
+            if name == "image_bf16_u8_b4":
+                seen = []
+                program = svc.program
+                svc.program = lambda x: seen.append((x, program(x))) or seen[-1][1]
+                images = [rng.randint(0, 256, (368, 368, 3)).astype(np.uint8) for _ in range(16)]
+                replies = _concurrent(svc.predict_image, images)
+                svc.program = program
+                _check_image_keypoints(replies)
+                same = True
+                with torch.no_grad():
+                    for x, heat in seen:  # the live model on the same padded batch
+                        ref = live(preprocess_images(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).cpu().numpy()
+                        for i in range(x.shape[0]):
+                            same &= serve._argmax_kpts(ref[i], 14, 368, 368) == serve._argmax_kpts(
+                                heat[i].cpu().numpy(), 14, 368, 368)
+                row.update(requests=16, batches=len(seen), batch_sizes=[int(x.shape[0]) for x, _ in seen],
+                           keypoints_equal_live_on_the_same_batch=bool(same),
+                           latency_ms=sorted(r["wall_ms"] for r in replies))
+                if not (same and len(seen) <= 8):
+                    raise AssertionError(f"the batched artifact server failed: {row}")
+            elif name == "int8_bf16_b1":
+                img = rng.randint(0, 256, (368, 368, 3)).astype(np.uint8)
+                replies = _concurrent(svc.predict_image, [img, img])
+                _check_image_keypoints(replies)
+                row["keypoints_agree"] = replies[0]["keypoints"] == replies[1]["keypoints"]
+            else:
+                def body(n):
+                    frames = [rng.randint(0, 256, (368, 368, 3)).astype(np.uint8) for _ in range(n)]
+                    return json.dumps({"frames": [base64.b64encode(cv2.imencode(".jpg", f)[1].tobytes()).decode()
+                                                  for f in frames]}).encode(), frames
+
+                def post(data):
+                    req = urllib.request.Request(base + "/predict_video", data=data, method="POST")
+                    try:
+                        with urllib.request.urlopen(req, timeout=300) as r:
+                            return r.status, json.loads(r.read())
+                    except urllib.error.HTTPError as e:
+                        return e.code, json.loads(e.read())
+
+                n = 12 if name == "stream_bf16_1x5" else 3
+                data, frames = body(n)
+                status, reply = post(data)
+                if status != 200:
+                    raise AssertionError(f"{name} refused a clip: {reply}")
+                _check_video_keypoints([reply], [frames])
+                row.update(frames=n, status=status, ms=reply["ms"], decode_route=svc.decode_route)
+                if name == "clip_bf16_u8_1x5":
+                    status, reply = post(body(CHUNK + 2)[0])
+                    row["too_long"] = {"status": status, "error": reply.get("error")}
+                    if status != 400 or "clip too long" not in reply.get("error", ""):
+                        raise AssertionError(f"the clip artifact took a too-long clip: {reply}")
+            out[name] = row
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(30)
+    counts = _launch_counts()
+    shutil.rmtree(tmp, ignore_errors=True)
+    del live
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_artifact", **out, "launches": counts, "gpu": gpu})
+    if min(counts.values()) == 0:
+        raise AssertionError(f"the artifact servers launched no {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1812,6 +2302,13 @@ def main() -> int:
     video_serve = phase_serve_video(gpu)
     paths["serve_video"] = video_serve["clip"]
     paths["serve_video_stream"] = video_serve["stream"]
+    image_state = random_state_dict(build_model(ModelConfig()), seed=1)  # phase_model's weights
+    conv_i8_rows = phase_conv_i8_kernel(dev, gpu, flush)
+    paths["int8_forward"] = phase_int8_forward(dev, gpu, image_state, video_state)
+    exported = phase_export(dev, gpu, flush, image_state, video_state)
+    paths["export"] = exported["counts"]
+    paths["serve_artifact"] = phase_serve_artifact(dev, gpu, exported["blobs"], image_state)
+    del exported
     paths["video_train_step_check"] = phase_video_train_step_check(dev)
     phase_video_remat(dev, gpu)
     paths["train_video_cli"] = phase_train_video_cli(gpu)
@@ -1874,6 +2371,24 @@ def main() -> int:
                 "shape", "ms", "device_ms", "kernels_per_call", "plain_ms", "unfused_ms",
                 "unfused_device_ms", "bound_ms", "bound_by", "max_abs_err", "rel_err")},
         })
+    ci8 = conv_i8_rows["main"]
+    entries.append({
+        "name": "conv_i8",
+        "route": "cuda",
+        "source": "unipose_tpu_torch/csrc/conv_i8.cu",
+        "replaces": "unipose_tpu/ops/quant.py:116 (XLA conv, not Pallas)",
+        "launches": paths["serve_artifact"]["conv_i8"],  # the int8 artifact's server
+        "launches_by_path": {p: c["conv_i8"] for p, c in paths.items() if "conv_i8" in c},
+        "max_abs_err": ci8["max_abs_err"],
+        "ms": ci8["ms"],
+        "plain_ms": ci8["plain_ms"],
+        "bound_ms": ci8["bound_ms"],
+        "bound_by": ci8["bound_by"],
+        "library_ms": ci8["library_ms"],  # torch._int_mm on the flattened input
+        "device_ms": ci8["device_ms"],
+        "shape": f"int8 {ci8['in']} -> int32 {ci8['out']} ({ci8['shape']})",
+        "front_end_by_batch": conv_i8_rows["front_end"],  # the 24 launches of a forward, summed
+    })
     emit({"kernels": entries})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

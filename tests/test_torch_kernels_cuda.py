@@ -13,15 +13,18 @@ import numpy as np
 import pytest
 import torch
 
+from unipose_tpu_torch.compat import export as artifact
 from unipose_tpu_torch.core.config import ModelConfig
 from unipose_tpu_torch.models.unipose import (
     build_model,
     load_numpy_state_dict,
     random_state_dict,
 )
+from unipose_tpu_torch.models import quantized
 from unipose_tpu_torch.models.resnet import ResNet101
 from unipose_tpu_torch.models.wasp import WASP
 from unipose_tpu_torch.ops import kernels
+from unipose_tpu_torch.ops.kernels import conv_i8 as ci8
 from unipose_tpu_torch.ops.kernels import fused_stem as fs
 from unipose_tpu_torch.ops.kernels import heatmap_mse as hm
 from unipose_tpu_torch.ops.kernels import wasp_cascade as wc
@@ -57,7 +60,7 @@ def test_launch_counts_reset():
     assert kernels.launch_counts()["wasp_cascade"] == 5
     kernels.reset_launches()
     assert kernels.launch_counts() == {
-        "wasp_cascade": 0, "heatmap_mse": 0, "heatmap_mse_backward": 0, "fused_stem": 0,
+        "wasp_cascade": 0, "heatmap_mse": 0, "heatmap_mse_backward": 0, "fused_stem": 0, "conv_i8": 0,
     }
 
 
@@ -530,3 +533,107 @@ def test_video_train_step_through_the_kernel_matches_the_plain_loss(cuda, monkey
     assert abs(l_fused - l_plain) <= 1e-5 * abs(l_plain)
     for name, g in g_plain.items():
         assert _max_rel_err(g_fused[name], g) < 1e-4, name
+
+
+# ---------------------------------------------------------------------------
+# conv_i8 and the registered ops inside exported programs
+# ---------------------------------------------------------------------------
+
+# (Cin, Cout, k, stride, padding, H): every distinct conv of the int8 front
+# end at 368x368 (conv1; layer1 at 92; layer2's 3x3/2 and downsample from
+# 92 to 46, its convs at 46), and misaligned channel counts.
+CONV_I8_SHAPES = {
+    "conv1 7x7/2": (3, 64, 7, 2, 3, 368),
+    "l1 1x1 64-64": (64, 64, 1, 1, 0, 92),
+    "l1 3x3 64": (64, 64, 3, 1, 1, 92),
+    "l1 1x1 64-256": (64, 256, 1, 1, 0, 92),
+    "l1 1x1 256-64": (256, 64, 1, 1, 0, 92),
+    "l2 1x1 256-128": (256, 128, 1, 1, 0, 92),
+    "l2 3x3/2 128": (128, 128, 3, 2, 1, 92),
+    "l2 1x1 128-512": (128, 512, 1, 1, 0, 46),
+    "l2 down 1x1/2 256-512": (256, 512, 1, 2, 0, 92),
+    "l2 1x1 512-128": (512, 128, 1, 1, 0, 46),
+    "l2 3x3 128": (128, 128, 3, 1, 1, 46),
+    "misaligned cin 12": (12, 40, 3, 1, 1, 17),
+    "misaligned cin 5 dilated": (5, 24, 3, 1, 2, 15),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CONV_I8_SHAPES))
+def test_conv_i8_equals_its_plain_version(cuda, name):
+    cin, cout, k, stride, padding, h = CONV_I8_SHAPES[name]
+    dilation = 2 if "dilated" in name else 1
+    g = torch.Generator().manual_seed(sorted(CONV_I8_SHAPES).index(name))
+    x = torch.randint(-127, 128, (2, h, h, cin), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, k, cin, cout), generator=g, dtype=torch.int8)
+    x[0] = 127  # the largest sums the front end can reach
+    want = ci8.conv_i8_reference(x, w, stride, padding, dilation)
+    packed = ci8.pack_weight(w).to(cuda)
+    before = ci8.conv_i8.launches
+    got = ci8.conv_i8(x.to(cuda), packed, k, k, stride, padding, dilation)
+    again = ci8.conv_i8(x.to(cuda), packed, k, k, stride, padding, dilation)
+    torch.cuda.synchronize()
+    assert ci8.conv_i8.launches == before + 2
+    assert got.dtype == torch.int32 and torch.equal(got, again)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_conv_i8_raises_on_what_it_does_not_take(cuda):
+    w = ci8.pack_weight(torch.zeros(3, 3, 8, 16, dtype=torch.int8)).to(cuda)
+    with pytest.raises(TypeError):
+        ci8.conv_i8(torch.zeros(1, 8, 8, 8, device=cuda), w, 3, 3)
+    with pytest.raises(ValueError):
+        ci8.conv_i8(torch.zeros(1, 8, 8, 8, dtype=torch.int8, device=cuda), w.cpu(), 3, 3)
+    with pytest.raises(ValueError):  # not contiguous
+        ci8.conv_i8(torch.zeros(1, 8, 8, 8, dtype=torch.int8, device=cuda).permute(0, 2, 1, 3), w, 3, 3)
+
+
+def _reduced_model(dev, dtype, layers=(1, 1, 1, 1), seed=31):
+    model = build_model(ModelConfig(compute_dtype=dtype), layers=layers)
+    load_numpy_state_dict(model, random_state_dict(model, seed=seed))
+    return model.to(dev, memory_format=torch.channels_last).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_export_save_load_and_run_on_the_card(cuda, dtype):
+    """fused_stem and wasp_cascade inside a program exported on the card,
+    saved to bytes, loaded and run: the live model's heatmaps, one launch
+    of each kernel a call, counted inside the ops."""
+    model = _reduced_model(cuda, dtype)
+    ep = artifact.load_exported(artifact.export_inference(model, (2, 128, 128, 3), raw_uint8=True))
+    x = torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8, device=cuda)
+    kernels.reset_launches()
+    got = ep.module()(x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_stem"] == 1 and kernels.launch_counts()["wasp_cascade"] == 1
+    with torch.no_grad():
+        want = model(((x.float() - 128) / 256).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert _max_rel_err(got, want) < (1e-5 if dtype == torch.float32 else TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_int8_artifact_runs_conv_i8_on_the_card(cuda):
+    model = _reduced_model(cuda, torch.bfloat16, layers=(3, 4, 1, 1), seed=32)
+    g = torch.Generator().manual_seed(0)
+    x = ((torch.rand(2, 128, 128, 3, generator=g) * 255 - 128) / 256).to(cuda)
+    _, forward = quantized.int8_forward_fn(model, x, dtype=torch.bfloat16)
+    ep = artifact.load_exported(artifact.export_inference(model, (2, 128, 128, 3), forward=forward))
+    kernels.reset_launches()
+    got = ep.module()(x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["conv_i8"] == 24 and counts["wasp_cascade"] == 1 and counts["fused_stem"] == 0
+    with torch.no_grad():
+        want = forward(x)
+    assert _max_rel_err(got, want) < TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_an_artifact_exported_on_the_card_is_refused_on_the_cpu(cuda):
+    blob = artifact.export_inference(_reduced_model(cuda, torch.float32), (1, 64, 64, 3))
+    assert artifact.artifact_meta(blob)["device"].startswith("cuda")
+    with pytest.raises(ValueError, match="cannot run on cpu"):
+        artifact.load_exported(blob, device="cpu")

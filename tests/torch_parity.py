@@ -5,8 +5,13 @@ for the JAX UniPoseLSTM, and a fixture that pins torch's CPU threads."""
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import functools
+import json
+import threading
+import urllib.error
+import urllib.request
 from typing import Tuple
 
 import jax
@@ -28,6 +33,24 @@ def max_rel_err(ours, ref) -> float:
     elementwise rtol near zero crossings only measures f32 noise)."""
     ours, ref = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
     return float(np.abs(ours - ref).max() / np.abs(ref).max())
+
+
+def rel_l2(ours, ref) -> float:
+    """||a - b|| / ||b||: JAX's measure for the int8 forwards' drift
+    (tests/test_quant.py:138-141)."""
+    ours, ref = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
+    return float(np.linalg.norm(ours - ref) / np.linalg.norm(ref))
+
+
+def codes_equal_but_ties(got, want, w, scale) -> None:
+    """int8 codes equal, except where w / scale sits within 1e-4 of a
+    rounding tie (there the two frameworks' last-ulp scales may round
+    apart, by one code)."""
+    got, want = np.asarray(got, np.int32), np.asarray(want, np.int32)
+    ratio = np.asarray(w, np.float64) / np.asarray(scale, np.float64)
+    tie = np.abs(np.abs(ratio - np.floor(ratio)) - 0.5) < 1e-4
+    assert np.abs(got - want).max() <= 1
+    assert not ((got != want) & ~tie).any()
 
 
 def perturb_bn(variables, seed: int):
@@ -116,6 +139,16 @@ def reduced_lstm_depth(layers: Tuple[int, int, int, int]):
         yield
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads_for_the_module():
+    """``two_threads`` for a whole module, its module-scoped fixtures
+    included: import it into a test module and it applies there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def two_threads():
     """Torch on two CPU threads for the test: the test runner puts six
@@ -127,3 +160,130 @@ def two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+def jax_variables(jax_model, state, *shapes, variant: str = "image"):
+    """The JAX model's variables holding a port ``state_dict`` (numpy,
+    reference keys), through the JAX package's own converter
+    (``compat/torch_convert.py::convert_state_dict``).  The template comes
+    from ``jax.eval_shape`` of the init on zero inputs of ``shapes``, so
+    nothing is compiled (a jitted init of the full model takes ~20 s)."""
+    from unipose_tpu.compat.torch_convert import convert_state_dict
+
+    args = [jnp.zeros(s) for s in shapes]
+    template = jax.eval_shape(lambda: jax_model.init(jax.random.PRNGKey(0), *args, train=False))
+    template = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), template)
+    variables, report = convert_state_dict(state, template, variant=variant)
+    assert all(k.endswith("num_batches_tracked") for k in report["skipped"]), report["skipped"]
+    return jax.tree_util.tree_map(jnp.asarray, variables)
+
+
+# ---------------------------------------------------------------------------
+# Artifacts and their server (tests/test_torch_export_cli.py,
+# tests/test_torch_serve_artifact_video.py)
+# ---------------------------------------------------------------------------
+
+SIZE = 64  # the artifacts' input side
+
+
+def export_artifact(tmp_path_factory, name, *flags, layers=(1, 1, 1, 1)):
+    """``cli/export.py`` on the CPU at SIZE x SIZE, with the backbone's depth
+    cut to ``layers`` (``train/state.py``'s ``init_model`` patched); returns
+    the artifact's path."""
+    from unipose_tpu_torch.cli import export as export_cli
+    from unipose_tpu_torch.models.unipose import init_model
+    from unipose_tpu_torch.train import state as train_state
+
+    path = tmp_path_factory.mktemp("artifacts") / name
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train_state, "init_model", functools.partial(init_model, layers=layers))
+        export_cli.main(["--out", str(path), "--size", str(SIZE), "--device", "cpu", *flags])
+    return str(path)
+
+
+def serve_args(artifact, **over):
+    """Serve arguments with defaults; the geometry must come from the
+    artifact (--size left wrong on purpose)."""
+    from unipose_tpu_torch.cli import serve
+
+    args = serve.parse_args(["--artifact", artifact, "--device", "cpu", "--port", "0", "--size", "368"])
+    for k, v in over.items():
+        setattr(args, k, v)
+    return args
+
+
+class _Server:
+    """``cli/serve.make_server`` serving on a thread, and its HTTP calls."""
+
+    def __init__(self, args):
+        from unipose_tpu_torch.cli import serve
+
+        self.srv = serve.make_server(args)
+        self.service = self.srv.service
+        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+
+    def get(self, path="/healthz"):
+        with urllib.request.urlopen(self.url + path, timeout=60) as r:
+            return json.loads(r.read())
+
+    def post(self, path, body):
+        req = urllib.request.Request(self.url + path, data=body, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=180) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(10)
+
+
+@pytest.fixture
+def artifact_server():
+    """start(args) -> a running ``_Server``; every one started is stopped at
+    the test's end."""
+    made = []
+
+    def start(args):
+        made.append(_Server(args))
+        return made[-1]
+
+    yield start
+    for s in made:
+        s.close()
+
+
+def jpeg(seed, shape=(90, 120, 3)):
+    import cv2
+
+    img = np.random.RandomState(seed).randint(0, 255, shape, np.uint8)
+    ok, buf = cv2.imencode(".jpg", img)
+    assert ok
+    return buf.tobytes()
+
+
+def clip_body(seeds, shape=(80, 100, 3)):
+    return json.dumps({"frames": [base64.b64encode(jpeg(s, shape)).decode() for s in seeds]}).encode()
+
+
+def in_frame(kpts, w0, h0):
+    return all(0 <= x <= w0 and 0 <= y <= h0 for x, y in kpts)
+
+
+def post_concurrently(srv, path, bodies):
+    results = [None] * len(bodies)
+
+    def post(i):
+        results[i] = srv.post(path, bodies[i])
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+        assert not t.is_alive()
+    return results

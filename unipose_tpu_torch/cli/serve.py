@@ -1,11 +1,22 @@
 """Pose-estimation server for the image and video models, on the card.
 
-Counterpart of ``unipose_tpu/cli/serve.py``.  The model is built in-process
-(random init from seed 0, or ``--pretrained`` reference weights; the JAX
-server serves video only from exported artifacts, which the port does not
-have yet), runs in bf16, and takes raw uint8 pixels that are normalised on
-the card.  Concurrent requests are grouped by a ``MicroBatcher`` and run at
-their real batch size (no padding to a static batch).
+Counterpart of ``unipose_tpu/cli/serve.py``.  Two ways to serve:
+
+* ``--artifact``: a program exported by ``cli/export.py``
+  (``compat/export.py``; weights baked in, loaded without the model code),
+  as the JAX server serves its StableHLO artifacts.  Geometry, input dtype
+  (uint8 for ``--raw_uint8`` artifacts, else normalised f32, which the
+  server computes on the host), joint count and baked batch are read from
+  the program itself; requests are padded to the baked batch.  Image and
+  clip artifacts micro-batch concurrent requests up to it; a streaming
+  artifact runs its init program, then its cont program, with each
+  client's ConvLSTM state carried between chunks.  The artifact runs where
+  it was exported (``--device``, the card by default).
+* in-process (no ``--artifact``): the model is built here (random init
+  from seed 0, or ``--pretrained`` reference weights), runs in bf16, and
+  takes raw uint8 pixels that are normalised on the card.  Concurrent
+  requests are grouped by a ``MicroBatcher`` and run at their real batch
+  size (no padding to a static batch).
 
 Endpoints:
   GET  /healthz        -> {"status": "ok", "kind": "image"|"video"|"video_stream", ...}
@@ -16,16 +27,20 @@ Endpoints:
      keypoints are per-channel heatmap argmaxes scaled back to the
      image's pixels (the demo path's get_kpts semantics).
 
-Video serving (``--model_arch uniposeLSTM``) has two modes:
+Video serving in-process (``--model_arch uniposeLSTM``) has two modes:
   * clip (default): a clip of at most ``--frame_memory`` frames, padded by
     repeating its last frame; concurrent clips micro-batch up to ``--batch``;
   * ``--stream``: a clip of any length, run in ``--frame_memory`` chunks with
     the ConvLSTM state carried from chunk to chunk.  Each request's state is
     its own, so requests are not coalesced; chunk calls reach the card
     through one FIFO.
-The centermap is a sigma-3 Gaussian at the frame centre, built once.
+The centermap is a sigma-3 Gaussian at the frame centre, built once.  An
+artifact's clips are decoded by the native batch decoder
+(``native.decode_batch_mem``, byte for byte the cv2 route's frames) where
+it builds, else by cv2; the server prints which.
 
 Usage:
+  python -m unipose_tpu_torch.cli.serve --artifact model.pt2 [--num_joints K] [--device cpu]
   python -m unipose_tpu_torch.cli.serve --dataset LSP [--pretrained w.pth.tar]
   python -m unipose_tpu_torch.cli.serve --dataset Penn_Action \\
       --model_arch uniposeLSTM --frame_memory 5 [--stream]
@@ -305,12 +320,180 @@ class VideoService:
         return self.predict_frames([_decode_image(base64.b64decode(f)) for f in frames_b64])
 
 
+def clip_decode_route() -> str:
+    """"native" when the C++ decode core builds and loads here, else "cv2":
+    a choice of host route, as the data loaders make it."""
+    from unipose_tpu_torch import native
+
+    return "native" if native.available() else "cv2"
+
+
+def decode_clip(frames_b64, size: int, route: str):
+    """A request's base64 JPEG frames -> ((T, size, size, 3) uint8 frames,
+    [(w0, h0)] per frame), by the native batch decoder (one call for the
+    clip, on its thread pool) or frame by frame with cv2; the two give the
+    same bytes."""
+    if not isinstance(frames_b64, list) or not frames_b64:
+        raise ValueError('body must be {"frames": ["<b64 jpeg>", ...]}')
+    bufs = [base64.b64decode(f) for f in frames_b64]
+    if route == "native":
+        from unipose_tpu_torch import native
+
+        out, statuses, dims = native.decode_batch_mem(bufs, size, return_dims=True)
+        bad = np.nonzero(statuses)[0]
+        if bad.size:
+            raise ValueError(f"frame {int(bad[0])} is not a decodable image")
+        return out.astype(np.uint8), [(int(c), int(r)) for r, c in dims]
+    imgs = [_decode_image(b) for b in bufs]
+    return np.stack([_resize(im, size) for im in imgs]), [(im.shape[1], im.shape[0]) for im in imgs]
+
+
+def _host_normalise(x: np.ndarray) -> np.ndarray:
+    """(x - 128) / 256 in f32 on the host, for an artifact that takes
+    normalised f32 (the JAX server's host-side preprocess)."""
+    return (x.astype(np.float32) - 128.0) / 256.0
+
+
+def _pad_batch(xs: np.ndarray, batch: int) -> np.ndarray:
+    """Pad the batch dim to the artifact's static ``batch`` by repeating the
+    last entry."""
+    if len(xs) < batch:
+        xs = np.concatenate([xs, np.repeat(xs[-1:], batch - len(xs), axis=0)])
+    return xs
+
+
+class ArtifactService:
+    """An exported program (image, clip, or a streaming pair) behind the
+    request functions.  Everything about its inputs is read from the
+    program: geometry, dtype, baked batch and (from its first output) the
+    joint count."""
+
+    def __init__(self, blob: bytes, *, device, num_joints=None, wait_ms: float = 2.0):
+        from unipose_tpu_torch.compat.export import (
+            input_specs,
+            is_stream_artifact,
+            load_exported,
+            load_video_stream,
+            output_specs,
+        )
+
+        self.device = torch.device(device)
+        self.stream = is_stream_artifact(blob)
+        if self.stream:
+            init, cont = load_video_stream(blob, self.device)
+            self.init, self.cont, ep = init.module(), cont.module(), init
+        else:
+            ep = load_exported(blob, self.device)
+            self.program = ep.module()
+        specs = input_specs(ep)
+        self.video = self.stream or (len(specs) == 2 and len(specs[0][0]) == 5)
+        if not self.video and (len(specs) != 1 or len(specs[0][0]) != 4):
+            raise SystemExit(
+                "serve expects an image artifact with one (B, H, W, 3) input or a video "
+                "artifact with (B, T, H, W, 3) + centermap inputs; got "
+                f"{len(specs)} input(s) {[s[0] for s in specs]}"
+            )
+        in_shape, in_dtype = specs[0]
+        self.raw_u8 = in_dtype == torch.uint8
+        self.batch = int(in_shape[0])
+        self.size = int(in_shape[2] if self.video else in_shape[1])
+        derived = int(output_specs(ep)[0][0][-1]) - 1
+        if num_joints is None:
+            num_joints = derived
+        elif num_joints > derived:
+            raise SystemExit(
+                f"--num_joints {num_joints} exceeds the artifact's {derived} joint channels: "
+                "every request would fail; drop the flag to take the count from the artifact"
+            )
+        self.num_joints = int(num_joints)
+        self.meta = {
+            "kind": ("video_stream" if self.stream else "video") if self.video else "image",
+            "input": list(in_shape),
+            "input_dtype": "uint8" if self.raw_u8 else "float32",
+            "num_joints": self.num_joints,
+            "batch": self.batch,
+            "artifact_bytes": len(blob),
+            "device": str(self.device),
+        }
+        if self.video:
+            self.clip_t = int(in_shape[1])
+            cm = _centermaps(self.batch, self.clip_t, self.size)
+            self.centermap = torch.from_numpy(cm).to(self.device)
+            self.decode_route = clip_decode_route()
+            print(f"clip decode route: {self.decode_route}", flush=True)
+        if self.stream:  # each client's state is its own: chunk calls go through one FIFO
+            self.batcher = MicroBatcher(lambda calls: [calls[0]()], 1, stack=list)
+        else:
+            self.batcher = MicroBatcher(self._call, self.batch, wait_ms=wait_ms)
+
+    def _input(self, xs: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(_pad_batch(xs, self.batch)).to(self.device)
+
+    @torch.no_grad()
+    def _call(self, xs: np.ndarray) -> np.ndarray:
+        """n <= batch requests (images, or clips) -> their heatmaps."""
+        args = (self._input(xs),) + ((self.centermap,) if self.video else ())
+        return self.program(*args)[: len(xs)].cpu().numpy()
+
+    @torch.no_grad()
+    def _chunk(self, chunk: np.ndarray, state):
+        """One (T, H, W, 3) chunk of one client's clip -> its (T, h, w, K+1)
+        heatmaps and the new state."""
+        x = self._input(chunk[None])
+        heat, cell, hide = (self.init(x, self.centermap) if state is None
+                            else self.cont(x, self.centermap, *state))
+        return heat[0].cpu().numpy(), (cell, hide)
+
+    def _wire(self, x: np.ndarray) -> np.ndarray:
+        return x if self.raw_u8 else _host_normalise(x)
+
+    def predict_image(self, img: np.ndarray) -> dict:
+        h0, w0 = img.shape[:2]
+        x = self._wire(_resize(img, self.size))
+        t0 = time.perf_counter()
+        heat = self.batcher.infer(x)
+        dt = (time.perf_counter() - t0) * 1e3
+        return {"keypoints": _argmax_kpts(heat, self.num_joints, w0, h0), "ms": round(dt, 2)}
+
+    def predict_clip(self, frames: np.ndarray, dims) -> dict:
+        """(T, size, size, 3) uint8 frames of one clip and their original
+        (w0, h0) -> keypoints a frame."""
+        t_real = len(dims)
+        if not self.stream and t_real > self.clip_t:
+            raise ValueError(
+                f"clip too long: {t_real} frames > artifact clip length {self.clip_t} "
+                "(export a streaming artifact with cli/export --stream to serve long videos)"
+            )
+        t0 = time.perf_counter()
+        if self.stream:
+            heats, state = [], None
+            for start in range(0, t_real, self.clip_t):
+                chunk = self._wire(_pad_frames(frames[start : start + self.clip_t], self.clip_t))
+                heat, state = self.batcher.infer(lambda c=chunk, s=state: self._chunk(c, s))
+                heats.append(heat)
+            heat = np.concatenate(heats)
+        else:
+            heat = self.batcher.infer(self._wire(_pad_frames(frames, self.clip_t)))
+        dt = (time.perf_counter() - t0) * 1e3
+        return {
+            "keypoints": [_argmax_kpts(heat[j], self.num_joints, *dims[j]) for j in range(t_real)],
+            "ms": round(dt, 2),
+        }
+
+    def predict(self, body: bytes) -> dict:
+        if not self.video:
+            return self.predict_image(_decode_image(body))
+        frames, dims = decode_clip(json.loads(body).get("frames"), self.size, self.decode_route)
+        return self.predict_clip(frames, dims)
+
+
 def http_server(service, host: str, port: int):
-    """A ThreadingHTTPServer for an ``ImageService`` or a ``VideoService``
-    (``server.service`` keeps it)."""
+    """A ThreadingHTTPServer for an ``ImageService``, a ``VideoService`` or
+    an ``ArtifactService`` (``server.service`` keeps it)."""
     import http.server
 
-    route = "/predict_video" if isinstance(service, VideoService) else "/predict"
+    video = isinstance(service, VideoService) or getattr(service, "video", False)
+    route = "/predict_video" if video else "/predict"
     handler = build_handler({route: service.predict}, service.meta)
     server = http.server.ThreadingHTTPServer((host, port), handler)
     server.service = service
@@ -318,15 +501,25 @@ def http_server(service, host: str, port: int):
 
 
 def make_server(args):
-    """Build the model and its HTTP server (separated from main for tests).
-    Runs on the card unless ``args.device`` names another device."""
+    """Build the model, or load ``args.artifact``, and the HTTP server
+    (separated from main for tests).  Runs on the card unless
+    ``args.device`` names another device."""
+    device = resolve_device(getattr(args, "device", None))
+    if getattr(args, "artifact", None):
+        with open(args.artifact, "rb") as f:
+            blob = f.read()
+        service = ArtifactService(
+            blob, device=device, num_joints=getattr(args, "num_joints", None),
+            wait_ms=getattr(args, "batch_wait_ms", 2.0),
+        )
+        return http_server(service, args.host, args.port)
+
     from unipose_tpu_torch.compat.torch_convert import (
         load_state_dict_intersection,
         load_torch_checkpoint,
     )
     from unipose_tpu_torch.models.unipose import init_model
 
-    device = resolve_device(getattr(args, "device", None))
     spec = DATASETS[args.dataset]
     video = args.model_arch == "uniposeLSTM"
     config = ModelConfig(
@@ -353,6 +546,13 @@ def make_server(args):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="unipose_tpu_torch pose server")
+    p.add_argument(
+        "--artifact", default=None,
+        help="a cli/export.py artifact to serve (input size, clip length, joint count and "
+        "batch are read from it; the model flags below are then unused)",
+    )
+    p.add_argument("--num_joints", type=int, default=None,
+                   help="artifact: joints to decode (at most the artifact's)")
     p.add_argument("--dataset", default="LSP", choices=sorted(DATASETS))
     p.add_argument("--model_arch", default="unipose", choices=("unipose", "uniposeLSTM"))
     p.add_argument("--frame_memory", type=int, default=5,

@@ -57,3 +57,23 @@ def state_dict_from_jax(
                 0, dtype=torch.int64
             )
     return out
+
+
+def int8_frontend_from_jax(fe):
+    """A JAX ``models.quantized.Int8Frontend`` (its arrays as numpy: the
+    caller runs ``jax.device_get``) -> the port's ``Int8Frontend``: per conv
+    ``w_i8``, ``w_scale``, ``b``, stride, padding and dilation, and the
+    activation scales, so that the int8 forwards can be compared on the
+    same quantized state."""
+    from unipose_tpu_torch.models.quantized import Int8Frontend
+    from unipose_tpu_torch.ops.quant import QuantConv
+
+    def t(a):
+        return torch.from_numpy(np.array(a, order="C"))
+
+    qconvs = {
+        name: QuantConv(w_i8=t(qc.w_i8), w_scale=t(qc.w_scale), b=t(qc.b), stride=int(qc.stride),
+                        padding=int(qc.padding), dilation=int(qc.dilation))
+        for name, qc in fe.qconvs.items()
+    }
+    return Int8Frontend(qconvs, {k: float(v) for k, v in fe.act_scales.items()})

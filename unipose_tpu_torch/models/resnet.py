@@ -34,16 +34,13 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from unipose_tpu_torch.models.layers import batch_norm, conv
-from unipose_tpu_torch.ops.kernels.fused_stem import cast_folded, fold_stem_params, fused_stem
+from unipose_tpu_torch.ops.kernels.fused_stem import (  # noqa: F401 (space_to_depth: public here)
+    cast_folded,
+    fold_stem_params,
+    fused_stem,
+    space_to_depth,
+)
 from unipose_tpu_torch.ops.pooling import max_pool2d
-
-
-def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
-    """(B, H, W, C) -> (B, H/b, W/b, b*b*C), channel order (dy, dx, c)."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // block, block, w // block, block, c)
-    x = x.permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, h // block, w // block, block * block * c)
 
 
 def s2d_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
@@ -178,6 +175,7 @@ class ResNet101(nn.Module):
     # The eval-mode stem; a test may set it on an instance to the plain
     # version to compare the two inside one model.
     stem = staticmethod(fused_stem)
+    _frozen_stem = ()  # the keys of the stem_* buffers, after freeze()
 
     def __init__(
         self,
@@ -223,10 +221,27 @@ class ResNet101(nn.Module):
             remat=remat_blocks,
         )
 
+    def freeze(self, dtype: torch.dtype) -> None:
+        """Eval only, for an exported program (``compat/export.py``): fold
+        the stem for ``dtype`` once into buffers ``stem_<key>``, which the
+        eval forward then reads (no cache, nothing folded at a call), and
+        drop the stem's conv and BN, which nothing reads any more (the
+        train-mode stem goes with them)."""
+        folded = cast_folded(fold_stem_params(self), dtype)
+        for k, v in folded.items():
+            self.register_buffer(f"stem_{k}", v)
+        self._frozen_stem = tuple(folded)
+        self._folded = None
+        for name in ("conv1", "conv1_s2d", "bn1"):
+            if hasattr(self, name):
+                delattr(self, name)
+
     def _folded_stem(self, dtype: torch.dtype):
         """Folded stem weights in ``dtype``, rebuilt only when the conv
         weight or a BN tensor changes (version counter or storage; see
-        ``Conv2d``) or the dtype does."""
+        ``Conv2d``) or the dtype does; after :meth:`freeze`, its buffers."""
+        if self._frozen_stem:
+            return {k: getattr(self, f"stem_{k}") for k in self._frozen_stem}
         bn = self.bn1
         w = self.conv1_s2d.weight if self.stem_s2d else self.conv1.weight
         key = (dtype,) + tuple(

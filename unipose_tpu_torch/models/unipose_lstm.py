@@ -82,8 +82,25 @@ class ConvLSTMCell(nn.Module):
             setattr(self, f"conv_{g}x_lstm", _gate_conv(features))
             setattr(self, f"conv_{g}h_lstm", _gate_conv(features))
 
+    _frozen = False  # freeze() has put the fused gates in gates_* buffers
+
+    def freeze(self, dtype: torch.dtype) -> None:
+        """Eval only, for an exported program (``compat/export.py``): join
+        the per-gate weights once, in ``dtype``, into buffers
+        ``gates_{x,h}_{weight,bias}``, which :meth:`_gates_conv` then reads,
+        and drop the per-gate convs."""
+        for xh in "xh":
+            convs = [getattr(self, f"conv_{g}{xh}_lstm") for g in GATE_ORDER]
+            self.register_buffer(f"gates_{xh}_weight", torch.cat([c.weight.detach() for c in convs]).to(dtype))
+            self.register_buffer(f"gates_{xh}_bias", torch.cat([c.bias.detach() for c in convs]).to(dtype))
+            for g in GATE_ORDER:
+                delattr(self, f"conv_{g}{xh}_lstm")
+        self._frozen = True
+
     def _gates_conv(self, x: torch.Tensor, xh: str) -> torch.Tensor:
         """The four ``xh`` gate convs of x as one conv, in x's dtype."""
+        if self._frozen:
+            return F.conv2d(x, getattr(self, f"gates_{xh}_weight"), getattr(self, f"gates_{xh}_bias"), padding=1)
         convs = [getattr(self, f"conv_{g}{xh}_lstm") for g in GATE_ORDER]
         w = torch.cat([c.weight for c in convs]).to(x.dtype)
         b = torch.cat([c.bias for c in convs]).to(x.dtype)
@@ -153,23 +170,28 @@ class UniPoseLSTM(nn.Module):
             x = torch.relu(getattr(self, f"conv{n}")(x))
         return x
 
-    def forward(
+    def tower(self, frames: torch.Tensor) -> torch.Tensor:
+        """(N, 3, H, W) normalised frames -> the decoder's (N, K+1, H/8,
+        W/8) in the compute dtype: backbone, WASP and decoder, batched over
+        the frames (nothing in them depends on the recurrent state)."""
+        x = frames.to(self.compute_dtype, memory_format=torch.channels_last)
+        feats, low_level = self.backbone(x)
+        return self.decoder(self.wasp(feats), low_level)
+
+    def temporal(
         self,
-        frames: torch.Tensor,
+        y: torch.Tensor,
         centermap: torch.Tensor,
         initial_state: Optional[State] = None,
     ) -> Tuple[torch.Tensor, State]:
-        """frames (B, T, 3, H, W) normalised, centermap (B, T, 1, H, W) ->
-        (heatmaps (B, T, K+1, H/8, W/8) f32, final (cell, hide) f32, each
-        (B, K+2, H/8, W/8)).
+        """The tower's (B*T, K+1, h, w) and centermap (B, T, 1, H, W) ->
+        (heatmaps (B, T, K+1, h, w) f32, final (cell, hide) f32): the
+        pooled centermap concatenated, the ConvLSTM over T, the head.
 
         ``initial_state``: the (cell, hide) of a previous chunk; every frame
         then goes through ``ConvLSTMCell``.  Without it frame 0 goes through
         ``ConvLSTM0``, the reference's first-frame branch (:106-124)."""
-        b, t, _, h, w = frames.shape
-        x = frames.reshape(b * t, 3, h, w).to(self.compute_dtype, memory_format=torch.channels_last)
-        feats, low_level = self.backbone(x)
-        y = self.decoder(self.wasp(feats), low_level)  # (B*T, K+1, h8, w8)
+        b, t, _, h, w = centermap.shape
         cm = avg_pool2d(centermap.reshape(b * t, 1, h, w).to(y.dtype), 9, 8, 1)
         z = torch.cat([y, cm], dim=1)
         h8, w8 = z.shape[2:]
@@ -194,3 +216,15 @@ class UniPoseLSTM(nn.Module):
         hides = torch.stack(hides, dim=1).reshape(b * t, -1, h8, w8)
         heat = self.head(hides.contiguous(memory_format=torch.channels_last))
         return heat.float().reshape(b, t, self.num_classes + 1, h8, w8), state
+
+    def forward(
+        self,
+        frames: torch.Tensor,
+        centermap: torch.Tensor,
+        initial_state: Optional[State] = None,
+    ) -> Tuple[torch.Tensor, State]:
+        """frames (B, T, 3, H, W) normalised, centermap (B, T, 1, H, W) ->
+        (heatmaps (B, T, K+1, H/8, W/8) f32, final (cell, hide) f32, each
+        (B, K+2, H/8, W/8)); ``initial_state`` as in :meth:`temporal`."""
+        b, t, _, h, w = frames.shape
+        return self.temporal(self.tower(frames.reshape(b * t, 3, h, w)), centermap, initial_state)

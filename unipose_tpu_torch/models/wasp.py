@@ -46,6 +46,7 @@ class WASP(nn.Module):
     # The eval-mode forward; a test may set it on an instance to the plain
     # version to compare the two inside one model.
     cascade = staticmethod(wasp_cascade)
+    _frozen = False  # freeze() has put the folded weights in folded_* buffers
 
     def __init__(
         self,
@@ -80,10 +81,25 @@ class WASP(nn.Module):
         self.dropout = Dropout(dropout_rate)
         self._folded = None
 
+    def freeze(self, dtype: torch.dtype) -> None:
+        """Eval only, for an exported program (``compat/export.py``): fold
+        the weights for ``dtype`` once into buffers ``folded_<key>``, which
+        the eval forward then reads (no cache, nothing folded at a call),
+        and drop the modules folded into them (the train-mode forward goes
+        with them)."""
+        for k, v in cast_folded(fold_wasp_params(self), dtype).items():
+            self.register_buffer(f"folded_{k}", v)
+        self._frozen = True
+        self._folded = None
+        for name in ("aspp1", "aspp2", "aspp3", "aspp4", "global_avg_pool", "conv2", "conv1", "bn1"):
+            delattr(self, name)
+
     def _folded_weights(self, dtype: torch.dtype):
         """Folded weights in ``dtype``, rebuilt only when any weight or BN
         statistic changes (version counter or storage; see ``Conv2d``) or
-        the dtype does."""
+        the dtype does; after :meth:`freeze`, its buffers."""
+        if self._frozen:
+            return {k[len("folded_"):]: v for k, v in self.named_buffers() if k.startswith("folded_")}
         key = (dtype,) + tuple(
             (t.data_ptr(), t._version)
             for t in (*self.parameters(), *self.buffers())

@@ -12,12 +12,18 @@ pad 1.  The folded weights hold the conv in its exact space-to-depth form
 space-to-depth(2) input, (192, 64) tap-major, and BN as an f32 scale and
 bias.  The bf16 kernel takes the weights packed for its k16 tensor-core
 steps (:func:`pack_stem_weights`); :func:`cast_folded` packs them once.
+
+The kernel is the registered op ``unipose::fused_stem``: its CPU
+implementation is the plain version, its CUDA implementation the launch,
+and a fake implementation gives ``torch.export`` the output's shape and
+dtype, so that an exported program calls the op and not this module's
+Python.  ``fused_stem.launches`` counts inside the CUDA implementation.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +33,14 @@ from unipose_tpu_torch.ops.kernels import build
 C_OUT = 64
 TAPS = 16 * 12  # 4x4 taps of the 12 space-to-depth channels
 _SHAPES = {"w4": (TAPS, C_OUT), "scale": (C_OUT,), "bias": (C_OUT,)}
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/b, W/b, b*b*C), channel order (dy, dx, c)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // block, block, w // block, block, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // block, w // block, block * block * c)
 
 
 @torch.no_grad()
@@ -59,14 +73,20 @@ def pack_stem_weights(w4: torch.Tensor) -> torch.Tensor:
     return packed
 
 
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` itself when it already has ``dtype`` and is contiguous (so an
+    exported program that holds cast weights records no conversion)."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
+
+
 def cast_folded(folded: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     """Weights in the compute dtype, scale and bias f32 (the JAX wrapper's
     casts, :153-155), and for bf16 the packed weights ``w16``, done once
     instead of at every call."""
     out = {
-        "w4": folded["w4"].to(dtype).contiguous(),
-        "scale": folded["scale"].float().contiguous(),
-        "bias": folded["bias"].float().contiguous(),
+        "w4": _as(folded["w4"], dtype),
+        "scale": _as(folded["scale"], torch.float32),
+        "bias": _as(folded["bias"], torch.float32),
     }
     if dtype == torch.bfloat16:
         w16 = folded.get("w16")
@@ -83,8 +103,6 @@ def fused_stem_reference(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> to
     bias in f32, ReLU, the max pool, and one rounding at the output.  An odd
     H or W gets one zero row or column first, which leaves the 7x7/2 conv
     unchanged."""
-    from unipose_tpu_torch.models.resnet import space_to_depth
-
     b, h, w, _ = x.shape
     xs = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
     xs = space_to_depth(xs, 2).permute(0, 3, 1, 2).float()  # (B, 12, H/2, W/2)
@@ -133,22 +151,39 @@ def blocks_per_sm(dtype: torch.dtype) -> int:
 
 def fused_stem(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Fused eval stem: (B, H, W, 3) -> (B, ceil(H/4), ceil(W/4), 64) in
-    x.dtype.
+    x.dtype, through the op ``unipose::fused_stem``.
 
     ``folded``: :func:`fold_stem_params` output (the weights are cast to
     x.dtype, and packed for bf16; pass :func:`cast_folded` output to skip
-    that).  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises.
+    that).  A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises.
     """
-    if x.device.type == "cpu":
-        return fused_stem_reference(x, folded)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_stem runs on cpu or cuda, not {x.device}")
-    _check(x, folded)
     w = cast_folded(folded, x.dtype)
-    if any(t.data_ptr() % 16 for t in w.values()):
-        raise ValueError("fused_stem needs 16-byte-aligned folded weights")
+    return torch.ops.unipose.fused_stem(x, w["w4"], w["scale"], w["bias"], w.get("w16"))
+
+
+fused_stem.launches = 0
+
+
+@torch.library.custom_op("unipose::fused_stem", mutates_args=(), device_types="cpu")
+def _fused_stem_op(
+    x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+    w16: Optional[torch.Tensor],
+) -> torch.Tensor:
+    return fused_stem_reference(x, {"w4": w4, "scale": scale, "bias": bias})
+
+
+@_fused_stem_op.register_kernel("cuda")
+def _fused_stem_cuda(x, w4, scale, bias, w16):
+    folded = {"w4": w4, "scale": scale, "bias": bias}
+    _check(x, folded)
+    w = w4 if x.dtype == torch.float32 else w16
+    if w is None or w.dtype != x.dtype or (x.dtype == torch.bfloat16 and tuple(w.shape) != (16, 16, C_OUT)):
+        raise ValueError("fused_stem in bf16 needs the packed bf16 weights w16 (cast_folded)")
+    if w4.dtype != x.dtype or scale.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError("fused_stem needs weights in x.dtype and an f32 scale and bias (cast_folded)")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (w, scale, bias)):
+        raise ValueError("fused_stem needs contiguous, 16-byte-aligned folded weights")
     b, h, wd, _ = x.shape
     with torch.cuda.device(x.device):
         out = torch.empty((b, (h + 3) // 4, (wd + 3) // 4, C_OUT), dtype=x.dtype, device=x.device)
@@ -156,9 +191,9 @@ def fused_stem(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor
         rc = lib.fused_stem_forward(
             0 if x.dtype == torch.float32 else 1,
             ctypes.c_void_p(x.data_ptr()),
-            ctypes.c_void_p(w["w4" if x.dtype == torch.float32 else "w16"].data_ptr()),
-            ctypes.c_void_p(w["scale"].data_ptr()),
-            ctypes.c_void_p(w["bias"].data_ptr()),
+            ctypes.c_void_p(w.data_ptr()),
+            ctypes.c_void_p(scale.data_ptr()),
+            ctypes.c_void_p(bias.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
             b, h, wd,
             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
@@ -169,4 +204,7 @@ def fused_stem(x: torch.Tensor, folded: Dict[str, torch.Tensor]) -> torch.Tensor
     return out
 
 
-fused_stem.launches = 0
+@_fused_stem_op.register_fake
+def _(x, w4, scale, bias, w16):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, (h + 3) // 4, (w + 3) // 4, C_OUT))

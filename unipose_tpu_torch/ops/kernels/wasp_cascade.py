@@ -13,6 +13,12 @@ TPU: eval-mode BatchNorm folded into each conv, and the double ``conv2``
 The bf16 kernel cuts the K loop of a product with fewer output tiles than
 the card has SMs into slices (:func:`split_plan`, computed here and passed
 to the kernel, so that a CPU test can check it).
+
+The kernel is the registered op ``unipose::wasp_cascade`` (the folded
+tensors in :data:`FOLDED` order, and the three dilations): its CPU
+implementation is the plain version, its CUDA implementation the launch,
+and a fake implementation gives ``torch.export`` the output's shape and
+dtype.  ``wasp_cascade.launches`` counts inside the CUDA implementation.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ GAP_SPLIT = 16  # spatial slices of the GAP partial sums (csrc GAP_SPLIT)
 TILE_M, TILE_N, TILE_K = 64, 128, 64  # the bf16 kernel's tile (csrc TBM, TBN, TBK)
 WEIGHTS = ("w1", "w2", "w3", "w4", "w2eff", "wg", "wc")
 BIASES = ("b1", "b2", "b3", "b4", "bg", "bc")
+FOLDED = WEIGHTS + BIASES  # the op's order of the folded tensors
 _SHAPES = {
     "w1": (C_IN, C_MID),
     "w2": (3, 3, C_MID, C_MID),
@@ -115,10 +122,13 @@ def fold_wasp_params(wasp) -> Dict[str, torch.Tensor]:
 def cast_folded(folded: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     """Weights in the compute dtype, biases f32 (the JAX wrapper's casts,
     :181-182), done once instead of at every call."""
-    return {
-        k: (v.to(dtype) if k in WEIGHTS else v.float()).contiguous()
-        for k, v in folded.items()
-    }
+    out = {}
+    for k, v in folded.items():
+        want = dtype if k in WEIGHTS else torch.float32
+        # the tensor itself when it is already cast, so that an exported
+        # program holding cast weights records no conversion
+        out[k] = v if v.dtype == want and v.is_contiguous() else v.to(want).contiguous()
+    return out
 
 
 def wasp_cascade_reference(
@@ -209,22 +219,35 @@ def blocks_per_sm() -> int:
 def wasp_cascade(
     x: torch.Tensor, folded: Dict[str, torch.Tensor], dilations: Sequence[int] = (18, 12, 6)
 ) -> torch.Tensor:
-    """Fused WASP eval forward: (B, S, S, 2048) -> (B, S, S, 256) in x.dtype.
+    """Fused WASP eval forward: (B, S, S, 2048) -> (B, S, S, 256) in x.dtype,
+    through the op ``unipose::wasp_cascade``.
 
     ``folded``: :func:`fold_wasp_params` output (weights are cast to x.dtype,
     biases to f32; pass :func:`cast_folded` output to skip the casts).
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises.
     """
-    if x.device.type == "cpu":
-        return wasp_cascade_reference(x, folded, dilations)
-    if x.device.type != "cuda":
-        raise ValueError(f"wasp_cascade runs on cpu or cuda, not {x.device}")
-    _check(x, folded, dilations)
+    w = cast_folded(folded, x.dtype)
+    return torch.ops.unipose.wasp_cascade(x, [w[k] for k in FOLDED], [int(d) for d in dilations])
+
+
+wasp_cascade.launches = 0
+
+
+@torch.library.custom_op("unipose::wasp_cascade", mutates_args=(), device_types="cpu")
+def _wasp_cascade_op(x: torch.Tensor, folded: List[torch.Tensor], dilations: List[int]) -> torch.Tensor:
+    return wasp_cascade_reference(x, dict(zip(FOLDED, folded)), dilations)
+
+
+@_wasp_cascade_op.register_kernel("cuda")
+def _wasp_cascade_cuda(x, folded, dilations):
+    w = dict(zip(FOLDED, folded))
+    _check(x, w, dilations)
     dt = x.dtype
-    w = cast_folded(folded, dt)
-    if any(t.data_ptr() % 16 for t in w.values()):
-        raise ValueError("wasp_cascade needs 16-byte-aligned folded weights")
+    if any(t.dtype != (dt if k in WEIGHTS else torch.float32) for k, t in w.items()):
+        raise TypeError("wasp_cascade needs weights in x.dtype and f32 biases (cast_folded)")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in w.values()):
+        raise ValueError("wasp_cascade needs contiguous, 16-byte-aligned folded weights")
     b, s = x.shape[0], x.shape[1]
     m = b * s * s
     with torch.cuda.device(x.device):
@@ -263,4 +286,7 @@ def wasp_cascade(
     return out
 
 
-wasp_cascade.launches = 0
+@_wasp_cascade_op.register_fake
+def _(x, folded, dilations):
+    b, s = x.shape[0], x.shape[1]
+    return x.new_empty((b, s, s, C_MID))
