@@ -28,7 +28,12 @@ kernel against its exact
 plain version at every front-end shape, the int8 image
 and video forwards, the serving artifacts of ``compat/export.py`` built on the card
 and held against the live models (``export``), and ``cli/serve.py
---artifact`` on each of them (``serve_artifact``).  Prints one JSON object
+--artifact`` on each of them (``serve_artifact``).  After ``train_cli``
+come the data-parallel phases: ``ddp_cli``, ``cli/train.py`` under
+``torch.distributed.run`` as one NCCL rank under DDP on the same LSP files
+(checkpoint, resume, the checkpoint in one process, ``cli/eval.py``), and
+``ddp_step_check``, two ranks sharing the card over gloo against one
+process on the global batch, in f32 and in f64.  Prints one JSON object
 a phase, a
 ``kernels`` line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -43,6 +48,7 @@ import dataclasses
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -87,6 +93,7 @@ from unipose_tpu_torch.ops.kernels import build
 from unipose_tpu_torch.ops.kernels import fused_stem as fs
 from unipose_tpu_torch.ops.kernels import heatmap_mse as hm
 from unipose_tpu_torch.ops.kernels import wasp_cascade as wc
+from unipose_tpu_torch.train import state as train_state
 from unipose_tpu_torch.train.state import create_train_state
 from unipose_tpu_torch.train.steps import make_centermaps, make_targets, make_train_step, mse, preprocess_images
 from unipose_tpu_torch.train.trainer import Trainer
@@ -118,8 +125,9 @@ MODEL_PAIRS = 20
 
 # heatmap_mse: (batch, joints, sigma) at 46x46 (368x368, stride 8); LSP has
 # 14 joints (15 channels), NTID 19 (20); sigma 3 for images, 1 for video.
-HM_CASES = ((1, 14, 3.0), (8, 14, 3.0), (32, 14, 3.0), (1, 14, 1.0), (8, 14, 1.0),
-            (32, 14, 1.0), (8, 19, 3.0))
+# Batch 4 is a rank's share of ddp_step_check's global batch of 8.
+HM_CASES = ((1, 14, 3.0), (4, 14, 3.0), (8, 14, 3.0), (32, 14, 3.0), (1, 14, 1.0),
+            (8, 14, 1.0), (32, 14, 1.0), (8, 19, 3.0))
 HM_MAIN = (torch.float32, 8, 14, 3.0)  # the train step's loss: f32, batch 8, LSP
 # (batch, H, W, joints, sigma) off 46x46: tiles that cross image boundaries,
 # Penn Action at 360x296 input, MPII and NTID at 128x128 and 64x64
@@ -1235,7 +1243,14 @@ def _states_equal(got: dict, want: dict) -> bool:
                     for k, v in want["optimizer"]["state"].items() for n, t in v.items()))
 
 
-def phase_train_cli(gpu: str) -> dict:
+def write_lsp_roots(tmp: str):
+    """The LSPET train root (64 JPGs) and LSP val root (20) that the
+    ``train_cli`` and ``ddp_cli`` phases train and validate on."""
+    return (write_lsp_root(os.path.join(tmp, "lspet"), "lspet", TRAIN_CLI_IMAGES[0], seed=21),
+            write_lsp_root(os.path.join(tmp, "lsp"), "lsp", TRAIN_CLI_IMAGES[1], seed=22))
+
+
+def phase_train_cli(gpu: str, train_dir: str, val_dir: str) -> dict:
     """The training CLI on LSP files: ``cli/train.main`` (full width, f32,
     368x368, batch 8) on an LSPET root of 64 JPGs and an LSP root of 20 for
     two epochs (checkpoints at steps 8 and 16), with the launch counts set
@@ -1246,8 +1261,6 @@ def phase_train_cli(gpu: str) -> dict:
     over the directory, whose mAP must equal the resumed trainer's.
     Returns the launch counts of the first run."""
     with tempfile.TemporaryDirectory(prefix="unipose_train_cli_") as tmp:
-        train_dir = write_lsp_root(os.path.join(tmp, "lspet"), "lspet", TRAIN_CLI_IMAGES[0], seed=21)
-        val_dir = write_lsp_root(os.path.join(tmp, "lsp"), "lsp", TRAIN_CLI_IMAGES[1], seed=22)
         ckpt, trace_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "trace")
         argv = ["--dataset", "LSP", "--train_dir", train_dir, "--val_dir", val_dir,
                 "--batch_size", str(TRAIN_BATCH), "--checkpoint_dir", ckpt,
@@ -1312,6 +1325,239 @@ def phase_train_cli(gpu: str) -> dict:
           and eval_map == trainer_map and 0.0 <= eval_map <= 1.0)
     if not ok:
         raise AssertionError(f"the training CLI failed its checks: {row}")
+    return counts
+
+
+WORKER = ROOT / "tests" / "torch_ddp_worker.py"  # one data-parallel rank (imports no jax)
+DDP_RANKS = 2  # ddp_step_check's ranks, sharing the one card over gloo (NCCL refuses that)
+DDP_BATCH = 8  # the global batch: 4 rows a rank
+DDP_TIMED_STEPS = 3
+# Bounds of ddp_step_check, max-norm relative.  The f64 leg (the network
+# in f64, the loss f32) is the gradient check: the loss, each gradient
+# tensor and each BN statistic at 1e-4.  The f32 leg holds the loss at 1e-4
+# and the statistics at 1e-3, and reports its gradient gap unbounded: a
+# random-init ResNet-101 in train mode amplifies a rounding difference of
+# its activations ~1e3-fold into the running statistics and ~1e6-fold into
+# the gradients (the f64 leg, 2^29 times finer, reads 1e-13 and 7e-10
+# apart; PERF.md §6), so two ranks' f32 gradients, whose moments and
+# convolutions sum in another order, lie 0.06-0.14 from one process's, too
+# near a fault's reading for a bound to tell them apart.
+DDP_TOL = 1e-4
+DDP_F32_STAT_TOL = 1e-3
+CHILD_TIMEOUT_S = 400
+
+
+def _run_children(cmds, env_of, log_dir: str, tag: str) -> list:
+    """Start every command as a child process (its output to a file), wait
+    for all with a timeout, kill them all on one; raise with their output
+    if any failed.  Returns their outputs."""
+    procs, logs = [], []
+    for i, cmd in enumerate(cmds):
+        logs.append(os.path.join(log_dir, f"{tag}.{i}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+                                          env=env_of(i), start_new_session=True))
+    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:  # each child's whole session: torchrun's ranks too
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    outs = [Path(log).read_text()[-20000:] for log in logs]
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"{tag}: a child failed ({[p.returncode for p in procs]}):\n" + "\n".join(outs))
+    return outs
+
+
+def _child_env(**extra) -> dict:
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env.update(PYTHONPATH=str(ROOT), **extra)
+    return env
+
+
+def _sum_counts(counts: list) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def _grad_errors(got: dict, want: dict, dev) -> dict:
+    """Per tensor max-norm relative errors (the worst, its name, the
+    median) and the error over all gradients at once (max |a - b| over
+    every element of every tensor, over the largest |b|)."""
+    per = {n: max_rel_err(got[n].to(dev), g) for n, g in want.items()}
+    worst = max(per, key=per.get)
+    top = max(g.abs().max().item() for g in want.values())
+    diff = max((got[n].to(dev).double() - g.double()).abs().max().item() for n, g in want.items())
+    return {"grad_max_rel_err": per[worst], "worst_grad": worst,
+            "grad_median_rel_err": statistics.median(per.values()), "grad_all_rel_err": diff / top}
+
+
+def _one_process_step(dev, db, sync_bn: bool, dtype):
+    """One process's f32 (or f64) step on the global batch from the ranks'
+    init and dropout generator: (loss, gradients, BN statistics, step fn,
+    state).  sync_bn=False: bn_groups = the ranks, one group each."""
+    mc = ModelConfig(sync_bn=sync_bn, compute_dtype=dtype)
+    init = train_state.init_model
+    if dtype == torch.float64:  # the whole network in f64 (the loss stays f32)
+        train_state.init_model = lambda *a, **k: init(*a, **k).double()
+    try:
+        model, optimizer, state = create_train_state(mc, TrainConfig(batch_size=DDP_BATCH), seed=0,
+                                                     device=dev, bn_groups=1 if sync_bn else DDP_RANKS)
+        step = make_train_step(model, optimizer, DATASETS["LSP"], fused_loss=True)
+        loss = step(state, db)["loss"].item()
+    finally:
+        train_state.init_model = init
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    stats = {k: v.clone() for k, v in model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    return loss, grads, stats, step, state
+
+
+def phase_ddp_step_check(dev, gpu: str) -> dict:
+    """Data-parallel training against one process: two ranks (child
+    processes sharing the card over gloo with CUDA tensors) each take their
+    4 rows of a global batch of 8 through the ``Trainer`` under DDP
+    (full-width UniPose, ResNet-101, 368x368, TF32 off, dropout on: each
+    rank keeps its rows of the global batch's masks), with ``sync_bn=True``
+    and ``sync_bn=False``, in f32 and with the network in f64; this process
+    takes the same step from the same init, generator and batch at batch 8,
+    with ``bn_groups=2`` for ``sync_bn=False``.  Held (the DDP_* bounds):
+    the loss and each BN statistic in both legs, and the gradients before
+    Adam (the ranks' average) per tensor in the f64 leg, which is the
+    gradient check; the f32 leg reports its gradient gap unbounded.  The
+    ranks' parameters and buffers bit-equal after the step;
+    ``heatmap_mse`` one launch each way a rank.  Then both f32 step times.
+    Two ranks on one card check correctness; their time says nothing of
+    scaling.  Returns the launch counts of the checked f32 steps, summed
+    over the ranks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(31)
+    batch = {"image": (rng.rand(DDP_BATCH, 368, 368, 3) * 255).astype(np.float32),
+             "kpts": np.concatenate([rng.uniform(8, 360, (DDP_BATCH, 14, 2)),
+                                     np.ones((DDP_BATCH, 14, 1))], -1).astype(np.float32)}
+    modes = (True, False)
+    with tempfile.TemporaryDirectory(prefix="unipose_ddp_") as tmp:
+        np.savez(os.path.join(tmp, "batch.npz"), **batch)
+        spec = {"init": f"file://{tmp}/rdzv", "out": os.path.join(tmp, "step"), "device": "cuda:0",
+                "backend": "gloo", "batch": os.path.join(tmp, "batch.npz"), "variant": "image",
+                "layers": None, "size": 368, "weights": None, "seed": 0, "lr": 1e-4,
+                "dropout": True, "modes": list(modes), "dtypes": ["float32", "float64"],
+                "timed_steps": DDP_TIMED_STEPS, "tf32": False, "tensor_ranks": [0]}
+        with open(os.path.join(tmp, "step.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        _run_children([[sys.executable, str(WORKER), "step", os.path.join(tmp, "step.json")]] * DDP_RANKS,
+                      lambda r: _child_env(RANK=str(r), WORLD_SIZE=str(DDP_RANKS), LOCAL_RANK="0"),
+                      tmp, "ddp_step")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{spec['out']}.rank{r}.pt", weights_only=False) for r in range(DDP_RANKS)]
+
+    db = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    rows, counts = {}, []
+    for dtype in (torch.float32, torch.float64):
+        for sync_bn in modes:
+            key = str(sync_bn) if dtype == torch.float32 else f"{sync_bn}:float64"
+            got = [r[key] for r in ranks]
+            loss, grads, stats, step, state = _one_process_step(dev, db, sync_bn, dtype)
+            stat_errs = {k: max_rel_err(got[0]["stats"][k].to(dev), v) for k, v in stats.items()}
+            worst_s = max(stat_errs, key=stat_errs.get)
+            f32 = dtype == torch.float32
+            row = {"loss_ranks": got[0]["loss"], "loss_one_process": loss,
+                   "loss_rel_err": abs(got[0]["loss"] - loss) / abs(loss),
+                   **_grad_errors(got[0]["grads"], grads, dev), "tensors": len(grads),
+                   "stat_max_rel_err": stat_errs[worst_s], "worst_stat": worst_s,
+                   "bounds": {"loss_rel_err": DDP_TOL,
+                              "stat_max_rel_err": DDP_F32_STAT_TOL if f32 else DDP_TOL,
+                              **({} if f32 else {"grad_max_rel_err": DDP_TOL})},
+                   "ranks_bit_equal": len({g["fingerprint"] for g in got}) == 1,
+                   "launches_per_rank": [g["launches"] for g in got],
+                   "one_process_bn_groups": 1 if sync_bn else DDP_RANKS}
+            if f32:
+                times = [call_ms(lambda: step(state, db)) for _ in range(DDP_TIMED_STEPS + 1)]
+                row.update(step_ms_two_ranks=[statistics.median(g["step_ms"]) for g in got],
+                           step_ms_one_process=statistics.median(times[1:]))
+                counts.append(_sum_counts([g["launches"] for g in got]))
+            rows[key] = row
+            del step, state, grads
+            torch.cuda.empty_cache()
+    row = {"phase": "ddp_step_check", "ranks": DDP_RANKS, "backend": "gloo (CUDA tensors, one card)",
+           "global_batch": DDP_BATCH, "input": 368, "tf32": False, "dropout": True,
+           "by_sync_bn": rows, "ranks_wall_s": ranks_s, "gpu": gpu,
+           "note": "two ranks on one card measure correctness, not scaling"}
+    emit(row)
+    ok = all(all(r[m] < bound for m, bound in r["bounds"].items()) and r["ranks_bit_equal"]
+             and all(c["heatmap_mse"] == 1 and c["heatmap_mse_backward"] == 1
+                     for c in r["launches_per_rank"]) for r in rows.values())
+    if not ok:
+        raise AssertionError(f"two ranks disagree with one process: {row}")
+    return _sum_counts(counts)
+
+
+def _train_summary(out: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.startswith("train summary ")]
+    if len(lines) != 1:
+        raise AssertionError(f"expected one train summary line:\n{out}")
+    return json.loads(lines[0][len("train summary "):])
+
+
+def phase_ddp_cli(gpu: str, train_dir: str, val_dir: str) -> dict:
+    """The training CLI under ``python -m torch.distributed.run
+    --nproc_per_node 1``: one rank joins an NCCL group and trains through
+    DDP (full width, f32, batch 8) on train_cli's LSP roots for one epoch,
+    validates on rank 0 and writes the checkpoint; a second launch resumes
+    from it for another epoch.  Its ``train summary`` lines give the
+    launch counts (the stem and WASP kernels run only in validation).  Then
+    the checkpoint (no ``module.`` keys) loads into a one-process
+    ``Trainer``, equal to the file bit for bit, and ``cli/eval.py`` (a
+    fresh process, as the rank was) on it gives the rank's mAP.  Returns
+    the first launch's counts."""
+    with tempfile.TemporaryDirectory(prefix="unipose_ddp_cli_") as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        argv = ["--dataset", "LSP", "--train_dir", train_dir, "--val_dir", val_dir,
+                "--batch_size", str(TRAIN_BATCH), "--checkpoint_dir", ckpt, "--model_name", "",
+                "--epochs", "1"]
+        launch = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                  "-m", "unipose_tpu_torch.cli.train"] + argv
+        t0 = time.perf_counter()
+        (out1,) = _run_children([launch], lambda r: _child_env(), tmp, "ddp_cli_first")
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (out2,) = _run_children([launch], lambda r: _child_env(), tmp, "ddp_cli_resume")
+        resume_s = time.perf_counter() - t0
+        first, second = _train_summary(out1), _train_summary(out2)
+        kept = sorted(os.listdir(ckpt), key=int)
+        saved = torch.load(os.path.join(ckpt, kept[-1]), map_location="cpu", weights_only=True)
+        module_keys = [k for k in saved["model"] if k.startswith("module.")]
+        one = cli_train.make_trainer(cli_train.build_argparser().parse_args(argv))
+        loaded_equal = one.mesh.world == 1 and _states_equal(one.state.state_dict(), saved)
+        del one, saved
+        torch.cuda.empty_cache()
+        (eval_out,) = _run_children(
+            [[sys.executable, "-c", "import sys; from unipose_tpu_torch.cli import eval as e; "
+              "print('eval mAP', repr(float(e.main(sys.argv[1:]))))",
+              "--dataset", "LSP", "--val_dir", val_dir, "--checkpoint_dir", ckpt]],
+            lambda r: _child_env(), tmp, "ddp_cli_eval")
+        eval_map = float([ln for ln in eval_out.splitlines() if ln.startswith("eval mAP ")][0].split()[2])
+    steps_per_epoch = TRAIN_CLI_IMAGES[0] // TRAIN_BATCH
+    counts = first["launches"]
+    row = {"phase": "ddp_cli", "launcher": "torch.distributed.run --nproc_per_node 1",
+           "backend": "nccl", "dtype": "torch.float32", "batch": TRAIN_BATCH, "input": 368,
+           "first_launch_s": first_s, "resume_launch_s": resume_s, "first": first, "resumed": second,
+           "resumed_line": "resumed from step %d" % steps_per_epoch in out2, "checkpoints": kept,
+           "module_keys": len(module_keys), "one_process_load_bit_identical": loaded_equal,
+           "eval_mAP": eval_map, "gpu": gpu}
+    emit(row)
+    ok = (first["step"] == steps_per_epoch and second["step"] == 2 * steps_per_epoch
+          and row["resumed_line"] and kept == [str(steps_per_epoch), str(2 * steps_per_epoch)]
+          and counts["heatmap_mse"] == steps_per_epoch and counts["heatmap_mse_backward"] == steps_per_epoch
+          and counts["fused_stem"] > 0 and counts["wasp_cascade"] > 0
+          and not module_keys and loaded_equal and eval_map == second["mAP"])
+    if not ok:
+        raise AssertionError(f"the data-parallel training CLI failed its checks: {row}")
     return counts
 
 
@@ -2296,7 +2542,11 @@ def main() -> int:
     train_counts = {str(dt): phase_train(dev, gpu, loaders, dt) for dt in (torch.float32, torch.bfloat16)}
     phase_learning(dev, loaders)
     del loaders
-    paths["train_cli"] = phase_train_cli(gpu)
+    with tempfile.TemporaryDirectory(prefix="unipose_lsp_") as lsp:
+        lsp_roots = write_lsp_roots(lsp)
+        paths["train_cli"] = phase_train_cli(gpu, *lsp_roots)
+        paths["ddp_cli"] = phase_ddp_cli(gpu, *lsp_roots)
+    paths["ddp_step_check"] = phase_ddp_step_check(dev, gpu)
     video_state = phase_video(dev, gpu)
     paths["video_stream"] = phase_video_stream(dev, gpu, video_state, flush)
     video_serve = phase_serve_video(gpu)

@@ -111,7 +111,7 @@ def test_yaml_config_flag(tmp_path):
 
 def test_yaml_key_the_port_lacks_raises(tmp_path):
     cfg = tmp_path / "c.yaml"
-    cfg.write_text("train:\n  mesh_shape: [2]\n")
+    cfg.write_text("train:\n  donate_state: false\n")  # a JAX field the port leaves out
     with pytest.raises(TypeError):
         config.load_yaml_config(str(cfg))
 

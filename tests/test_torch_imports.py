@@ -1,6 +1,6 @@
-"""Import hygiene of the port: unipose_tpu_torch and chip_smoke.py import
-neither jax nor the JAX package, and its entry points never fall back to
-the CPU on their own."""
+"""Import hygiene of the port: unipose_tpu_torch, chip_smoke.py and the
+data-parallel rank worker import neither jax nor the JAX package, and its
+entry points never fall back to the CPU on their own."""
 
 import ast
 import subprocess
@@ -25,7 +25,9 @@ def _modules():
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # the data-parallel rank worker runs as a child process of the tests
+    # and of chip_smoke.py, on the card's host too
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_ddp_worker.py"]
 
 
 def _forbidden(module: str) -> bool:

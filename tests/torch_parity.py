@@ -1,7 +1,8 @@
 """Shared helpers for the tests that hold ``unipose_tpu_torch`` against
 ``unipose_tpu``: the parity measure, seeded BN perturbation of JAX
 variables, a JAX UniPose whose backbone depth can be cut, the same cut
-for the JAX UniPoseLSTM, and a fixture that pins torch's CPU threads."""
+for the JAX UniPoseLSTM, a fixture that pins torch's CPU threads, and the
+launchers of data-parallel ranks as child processes."""
 
 from __future__ import annotations
 
@@ -9,6 +10,10 @@ import base64
 import contextlib
 import functools
 import json
+import os
+import signal
+import subprocess
+import sys
 import threading
 import urllib.error
 import urllib.request
@@ -83,7 +88,7 @@ def perturb_bn(variables, seed: int):
 
 class ComposedUniPose(nn.Module):
     """``unipose_tpu.models.unipose.UniPose`` composed from its parts under
-    the same names, with the backbone depth as a field."""
+    the same names, with the backbone depth (and ``bn_groups``) as fields."""
 
     layers: Tuple[int, int, int, int] = (1, 1, 1, 1)
     num_classes: int = 14
@@ -91,19 +96,19 @@ class ComposedUniPose(nn.Module):
     stride: int = 8
     bbox_head: bool = False
     freeze_bn: bool = False
+    bn_groups: int = 1
 
     @nn.compact
     def __call__(self, x, *, train: bool = False):
         feats, low = ResNet101(
             output_stride=self.output_stride, layers=self.layers,
-            freeze_bn=self.freeze_bn, name="backbone",
+            freeze_bn=self.freeze_bn, bn_groups=self.bn_groups, name="backbone",
         )(x, train=train)
-        y = WASP(output_stride=self.output_stride, freeze_bn=self.freeze_bn, name="wasp")(
-            feats, train=train
-        )
+        y = WASP(output_stride=self.output_stride, freeze_bn=self.freeze_bn,
+                 bn_groups=self.bn_groups, name="wasp")(feats, train=train)
         y = Decoder(
             self.num_classes, bbox_head=self.bbox_head, freeze_bn=self.freeze_bn,
-            name="decoder",
+            bn_groups=self.bn_groups, name="decoder",
         )(y, low, train=train)
         if self.stride != 8:
             y = bilinear_resize(y, x.shape[1:3])
@@ -287,3 +292,79 @@ def post_concurrently(srv, path, bodies):
         t.join(120)
         assert not t.is_alive()
     return results
+
+
+# ---------------------------------------------------------------------------
+# Ranks as child processes (tests/torch_ddp_worker.py): no process group,
+# spawn or fork ever happens in the pytest process
+# ---------------------------------------------------------------------------
+
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_ddp_worker.py")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RANK_TIMEOUT = 120  # seconds a child is waited on
+
+
+def _child_env(**extra):
+    """The environment of a rank: one OpenMP thread, no launcher variables
+    inherited from the caller."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env.update(OMP_NUM_THREADS="1", PYTHONPATH=REPO, **extra)
+    return env
+
+
+def _wait_all(procs, logs):
+    """Wait on every child (``communicate(timeout=RANK_TIMEOUT)``); on a
+    timeout kill them all, then fail with their output."""
+    for p in procs:
+        try:
+            p.communicate(timeout=RANK_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:  # each child's whole session: torchrun's ranks too
+                if q.poll() is None:
+                    os.killpg(q.pid, signal.SIGKILL)
+            for q in procs:
+                q.wait()
+            pytest.fail("a rank timed out:\n" + "\n".join(_read(log) for log in logs))
+    outs = [_read(log) for log in logs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, "a rank failed:\n" + "\n".join(outs)
+    return outs
+
+
+def _read(path) -> str:
+    with open(path) as f:
+        return f.read()[-20000:]
+
+
+def run_ranks(mode: str, spec: dict, tmp_path, world: int = 2) -> list:
+    """``torch_ddp_worker.py <mode>`` as ``world`` child processes meeting at
+    a ``file://`` rendezvous under ``tmp_path`` (no port is picked, so test
+    workers cannot collide); returns each rank's results."""
+    spec = dict(spec, init=f"file://{tmp_path}/rdzv", out=str(tmp_path / mode))
+    path = tmp_path / f"{mode}.json"
+    path.write_text(json.dumps(spec))
+    procs, logs = [], []
+    for rank in range(world):
+        logs.append(str(tmp_path / f"{mode}.rank{rank}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, WORKER, mode, str(path)], cwd=REPO, stdout=log,
+                stderr=subprocess.STDOUT, start_new_session=True,
+                env=_child_env(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")))
+    outs = _wait_all(procs, logs)
+    for rank, out in enumerate(outs):
+        assert f"RANK_OK {rank}" in out, out
+    return [torch.load(f"{spec['out']}.rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def run_torchrun(args, tmp_path, nproc: int = 2, tag: str = "torchrun") -> str:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc <args>`` as a child process; returns its output."""
+    log = str(tmp_path / f"{tag}.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc_per_node={nproc}", *args],
+            cwd=REPO, stdout=f, stderr=subprocess.STDOUT, env=_child_env(), start_new_session=True)
+    return _wait_all([proc], [log])[0]

@@ -7,13 +7,20 @@ Usage (video, Reference: uniposeLSTM.py:274-301):
     python -m unipose_tpu_torch.cli.train --dataset Penn_Action --model_arch uniposeLSTM \
         --train_dir penn/ --val_dir penn/ --checkpoint_dir ...
 Runs on the CUDA card; ``--device cpu`` runs on the CPU (the tests do).
+Data-parallel over N ranks, one card each (NCCL; gloo for CPU ranks):
+    python -m torch.distributed.run --nproc_per_node N -m unipose_tpu_torch.cli.train ...
+``--batch_size`` is then the global batch, each rank training on its rows;
+rank 0 logs, validates and writes the checkpoints; a rerun resumes on
+every rank.  At the end rank 0 prints one line, ``train summary`` and a
+JSON object: the update count, the last validation's mAP and the kernels'
+launch counts of this process.
 
 Counterpart of ``unipose_tpu/cli/train.py``, with the same flags and
 defaults (video: clip batch 1, sigma 1, ``--frame_memory`` frames a clip),
 plus ``--device``, ``--input_size`` (LSP and Penn Action only: the other
 datasets' loaders resize to 368) and ``--profile_epoch`` (the epoch that
 ``--profile_dir`` traces, with ``torch.profiler``).  ``--time_parallel``
-above 1 exits (ROADMAP.md Queue 1 item 6).  Flags are not silently
+above 1 exits (ROADMAP.md Queue 1 item 6b).  Flags are not silently
 overridden after parsing (unipose.py:261-267 hardcodes paths over the CLI
 values); presets supply defaults instead.
 """
@@ -22,10 +29,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 
 import torch
 
 from unipose_tpu_torch.core.config import DATASETS, ModelConfig, TrainConfig
+from unipose_tpu_torch.parallel.mesh import maybe_init_distributed, shutdown_distributed
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -69,7 +78,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="the epoch that --profile_dir traces")
     p.add_argument("--time_parallel", default=1, type=int,
                    help="video only: shard each clip's frames over this many "
-                        "devices (not ported yet: ROADMAP.md Queue 1 item 6)")
+                        "devices (not ported yet: ROADMAP.md Queue 1 item 6b)")
     p.add_argument("--input_size", default=368, type=int,
                    help="input resolution (LSP and Penn Action only; the "
                         "reference's is 368)")
@@ -85,7 +94,7 @@ def apply_time_parallel(model_config, train_config, n_time: int):
         return model_config, train_config
     raise SystemExit(
         f"--time_parallel {n_time}: sequence parallelism is not ported yet "
-        "(ROADMAP.md Queue 1 item 6)"
+        "(ROADMAP.md Queue 1 item 6b)"
     )
 
 
@@ -160,7 +169,11 @@ def make_trainer(args):
 
 def run(trainer, args) -> None:
     """``epochs`` rounds of training and validation, then ``finalize``
-    (pending checkpoint writes commit) whatever happens."""
+    (pending checkpoint writes commit) whatever happens; then rank 0 prints
+    the ``train summary`` line."""
+    from unipose_tpu_torch.ops import kernels
+
+    mAP = None
     try:
         for epoch in range(trainer.train_config.epochs):
             if trainer.train_loader is not None:
@@ -172,16 +185,27 @@ def run(trainer, args) -> None:
                 else:
                     trainer.training(epoch)
             if trainer.val_loader is not None:
-                trainer.validation(epoch)
+                mAP = trainer.validation(epoch)
     finally:
         trainer.finalize()
+    if trainer.is_main:
+        print("train summary " + json.dumps({"step": trainer.state.step, "mAP": mAP,
+                                              "launches": kernels.launch_counts()}), flush=True)
 
 
 def main(argv=None):
-    """Parse, build the trainer, run it; returns the trainer."""
+    """Join the process group when a launcher started this process (first,
+    as JAX's does, cli/train.py:140-143), parse, build the trainer, run it,
+    leave the group; returns the trainer."""
     args = build_argparser().parse_args(argv)
-    trainer = make_trainer(args)
-    run(trainer, args)
+    device = maybe_init_distributed(args.device)
+    if device is not None:
+        args.device = str(device)
+    try:
+        trainer = make_trainer(args)
+        run(trainer, args)
+    finally:
+        shutdown_distributed()
     return trainer
 
 

@@ -4,10 +4,12 @@ training recipe, the presets and the YAML loader.
 Counterpart of ``unipose_tpu/core/config.py``.  The dataset specs are copied
 as they are; ``ModelConfig`` holds the image and video models' fields, with
 ``compute_dtype`` a ``torch.dtype``; ``TrainConfig`` holds the training
-fields that the port reads.  The parallelism fields (``sync_bn``,
-``mesh_shape``, ``mesh_axes``, ``donate_state``, ``spmd_axes``) and the
-rematerialisation fields arrive with the slices that use them; the presets
-carry every field the port's configs have.
+fields that the port reads.  Data parallelism is here: ``ModelConfig.
+sync_bn`` and ``TrainConfig.mesh_shape``/``mesh_axes``, whose axes are
+ranks (processes, one card each; ``parallel/mesh.py``).  ``spmd_axes``
+(time-parallel video training) waits for its slice; ``donate_state`` has
+no PyTorch meaning (a step updates the state in place) and is left out.
+The presets carry every field the port's configs have.
 """
 
 from __future__ import annotations
@@ -178,6 +180,14 @@ class ModelConfig:
     # backbone in the backward (``ResNet101(remat_blocks=True)``): its
     # activations, which grow with B*T, are what long rollouts run out of.
     remat_tower: bool = False
+    # Data-parallel BatchNorm (the reference accepts the flag and ignores
+    # it, model/unipose.py:14).  True: train-mode statistics over the
+    # global batch, all-reduced across the ranks (TorchBatchNorm with a
+    # process group).  False: per-rank statistics; the Trainer builds the
+    # model with one statistics group per data-parallel shard, and the
+    # running statistics update from the pooled moments so the ranks'
+    # buffers stay equal.
+    sync_bn: bool = True
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +221,10 @@ class TrainConfig:
     # Validation forward batch size.  The reference validates at batch 1
     # (unipose.py:64); the metrics stay per frame whatever it is.
     val_batch_size: int = 8
+    # The ranks as a mesh (parallel/mesh.py::make_mesh): one -1 takes the
+    # world size; ``batch_size`` is the global batch, split over "data".
+    mesh_shape: Tuple[int, ...] = (1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
 
 
 def effective_spec(spec: DatasetSpec, train: TrainConfig) -> DatasetSpec:
@@ -269,8 +283,7 @@ PRESETS = {
         model=ModelConfig(dataset="BBC", num_classes=7, variant="lstm", frame_memory=5),
         train=TrainConfig(batch_size=1, sigma=1.0, model_name="uniposeLSTM_bbc"),
     ),
-    # 5. Batched multi-clip training, bf16 (the JAX preset's sync_bn and
-    # mesh_shape wait for the parallelism slice)
+    # 5. Batched multi-clip data-parallel training, bf16
     "multichip_video": Preset(
         name="multichip_video",
         description="Multi-clip video training, GSPMD data-parallel, bf16",
@@ -279,9 +292,12 @@ PRESETS = {
             num_classes=13,
             variant="lstm",
             frame_memory=5,
+            sync_bn=True,
             compute_dtype=torch.bfloat16,
         ),
-        train=TrainConfig(batch_size=32, sigma=1.0, model_name="uniposeLSTM_multichip"),
+        train=TrainConfig(
+            batch_size=32, sigma=1.0, mesh_shape=(-1,), model_name="uniposeLSTM_multichip"
+        ),
     ),
 }
 

@@ -24,21 +24,21 @@ from unipose_tpu_torch.ops.resize import bilinear_resize
 
 
 class Decoder(nn.Module):
-    def __init__(self, num_classes: int, bbox_head: bool = False):
+    def __init__(self, num_classes: int, bbox_head: bool = False, bn_groups: int = 1):
         super().__init__()
         self.conv1 = conv(256, 48, 1)
-        self.bn1 = batch_norm(48)
+        self.bn1 = batch_norm(48, bn_groups)
         # +5 bounding-box channels (center + 4 corners): the reference's
         # commented-out variant (decoder.py:31 ``num_classes+5+1``).
         out_ch = num_classes + 1 + (5 if bbox_head else 0)
         # indices 0, 1, 4, 5, 8 carry the reference's keys (decoder.py:22-30)
         self.last_conv = nn.Sequential(
             conv(304, 256, 3, padding=1),
-            batch_norm(256),
+            batch_norm(256, bn_groups),
             nn.ReLU(),
             Dropout(0.5),
             conv(256, 256, 3, padding=1),
-            batch_norm(256),
+            batch_norm(256, bn_groups),
             nn.ReLU(),
             Dropout(0.1),
             conv(256, out_ch, 1, bias=True),

@@ -9,7 +9,8 @@ dtype policy, as in the JAX package: parameters and BN statistics stay f32;
 a conv runs in its input's dtype, with its weight cast once to that dtype
 (the JAX ``Conv`` casts its kernel at every call); BatchNorm computes in f32
 and returns its input's dtype (``nn.BatchNorm2d`` takes a bf16 input with
-f32 parameters and does exactly that).
+f32 parameters and does exactly that, and ``TorchBatchNorm``'s own paths
+do the same).
 """
 
 from __future__ import annotations
@@ -78,9 +79,122 @@ def conv(
     return m
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    """Torch-semantics BatchNorm: eps 1e-5, momentum 0.1."""
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class TorchBatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) with the JAX package's two
+    train-mode extensions (JAX layers.py:22-120).  A subclass, so the
+    ``state_dict`` keys, the kernels' BN folding and the remat stand-in
+    buffers (``models/resnet.py::_bn_stats_frozen``) see a BatchNorm2d.
+
+    * Eval, and train mode with neither extension: ``nn.BatchNorm2d``.
+    * ``stat_groups = g`` (one process): each contiguous group of B/g rows
+      is normalised with its own moments (per-shard, "ghost" BatchNorm);
+      the running statistics update from the pooled moments of the whole
+      batch, which is the g = 1 update.  A batch that g does not divide
+      raises ``ValueError``.
+    * ``process_group`` set (training across ranks, each holding its rows
+      of the global batch): with ``sync`` the moments are the global
+      batch's, taken with two autograd all-reduces (sum and count give the
+      mean, then the sum of squared deviations about it gives the
+      variance: the two-pass form, not E[x^2] - E[x]^2), so the gradient
+      flows across ranks as the global batch's would.  Without ``sync``
+      each rank normalises with its own moments, and the running statistics
+      update from the pooled moments, all-reduced without a gradient, so
+      every rank's buffers stay equal with no broadcast (the
+      ``stat_groups`` semantics with one group a rank).
+
+    Statistics are f32 (f64 for an f64 input) whatever the input's dtype;
+    the output takes the input's dtype.
+    """
+
+    def __init__(self, channels: int, stat_groups: int = 1):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+        self.stat_groups = int(stat_groups)
+        self.process_group = None
+        self.sync = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or (self.stat_groups == 1 and self.process_group is None):
+            return super().forward(x)
+        if self.stat_groups > 1 and self.process_group is not None:
+            raise ValueError("stat_groups and process_group are mutually exclusive")
+        b, c = x.shape[:2]
+        g = self.stat_groups
+        if b % g:
+            raise ValueError(f"batch {b} is not divisible by stat_groups={g}")
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        axes = (0,) + tuple(range(2, x.dim()))
+        per_c = (1, c) + (1,) * (x.dim() - 2)
+        if g > 1:
+            xg = xf.reshape((g, b // g) + tuple(x.shape[1:]))
+            gaxes = (1,) + tuple(range(3, xg.dim()))
+            d = xg - xg.mean(gaxes, keepdim=True)
+            y = (d * torch.rsqrt(d.square().mean(gaxes, keepdim=True) + self.eps)).reshape(xf.shape)
+            with torch.no_grad():
+                mean, var, n = _pooled_moments(xf.detach(), axes, None)
+        elif self.sync:
+            mean, var, n = _pooled_moments(xf, axes, self.process_group)
+            y = (xf - mean.reshape(per_c)) * torch.rsqrt(var.reshape(per_c) + self.eps)
+        else:
+            d = xf - xf.mean(axes, keepdim=True)
+            y = d * torch.rsqrt(d.square().mean(axes, keepdim=True) + self.eps)
+            with torch.no_grad():
+                mean, var, n = _pooled_moments(xf.detach(), axes, self.process_group)
+        y = y * self.weight.reshape(per_c) + self.bias.reshape(per_c)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+            unbiased = var.detach() * n / (n - 1.0).clamp(min=1.0)
+            self.running_var.mul_(1 - m).add_(unbiased, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+
+def _pooled_moments(xf: torch.Tensor, axes, group):
+    """(mean, biased variance, count) per channel of ``xf`` over ``axes``
+(the count a 0-dim tensor: no value is read back to the host),
+    and over every rank of ``group`` when one is given: two all-reduces,
+    the sum and count first, then the squared deviations about the global
+    mean.  Under autograd the all-reduces carry the gradient across ranks
+    (``torch.distributed.nn.functional.all_reduce``)."""
+    total = torch.cat([xf.sum(axes), xf.new_full((1,), xf.numel() / xf.shape[1])])
+    if group is not None:
+        total = _all_reduce(total, group)
+    n = total[-1]
+    mean = total[:-1] / n
+    shape = (1, -1) + (1,) * (xf.dim() - 2)
+    sq = (xf - mean.reshape(shape)).square().sum(axes)
+    if group is not None:
+        sq = _all_reduce(sq, group)
+    return mean, sq / n, n.detach()
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the ranks of ``group``: through autograd when ``t`` needs a
+    gradient (whose backward is the same sum), in place otherwise."""
+    import torch.distributed as dist
+
+    if t.requires_grad:
+        from torch.distributed.nn.functional import all_reduce
+
+        return all_reduce(t, group=group)
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def batch_norm(channels: int, stat_groups: int = 1) -> TorchBatchNorm:
+    """The BatchNorm factory: ``TorchBatchNorm`` (eps 1e-5, momentum 0.1)
+    with ``stat_groups`` groups of per-shard statistics in training."""
+    return TorchBatchNorm(channels, stat_groups)
+
+
+def set_bn_process_group(module: nn.Module, group, sync: bool = True) -> None:
+    """Every ``TorchBatchNorm`` under ``module`` takes its train-mode
+    statistics across the ranks of ``group`` (``sync``: global moments;
+    otherwise per-rank moments with pooled running statistics)."""
+    for m in module.modules():
+        if isinstance(m, TorchBatchNorm):
+            m.process_group = group
+            m.sync = sync
 
 
 class Dropout(nn.Module):
@@ -98,23 +212,37 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = p
         self.generator = None
+        # (rank, ranks) in data-parallel training: draw the mask of the
+        # global batch (ranks x this batch, rows in rank order) and keep
+        # this rank's rows, so the ranks' masks are the one process's
+        self.shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0:
             return x
         keep = 1.0 - self.p
-        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        if self.shard is None:
+            mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        else:
+            rank, ranks = self.shard
+            b = x.shape[0]
+            # the global batch's tensor laid out as x (rows outermost), so
+            # the generator fills it as it fills the one process's mask
+            full = x.new_empty_strided((b * ranks,) + tuple(x.shape[1:]), x.stride())
+            mask = full.bernoulli_(keep, generator=self.generator)[rank * b:(rank + 1) * b]
         return x * mask / keep
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
 
 
-def use_dropout_generator(module: nn.Module, generator) -> None:
-    """Make every ``Dropout`` under ``module`` draw from ``generator``."""
+def use_dropout_generator(module: nn.Module, generator, shard=None) -> None:
+    """Make every ``Dropout`` under ``module`` draw from ``generator``; with
+    ``shard = (rank, ranks)``, the rank's rows of the global batch's mask."""
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+            m.shard = shard
 
 
 @torch.no_grad()

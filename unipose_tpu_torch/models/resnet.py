@@ -70,20 +70,22 @@ class Bottleneck(nn.Module):
         stride: int = 1,
         dilation: int = 1,
         has_downsample: bool = False,
+        bn_groups: int = 1,
     ):
         super().__init__()
         self.conv1 = conv(inplanes, planes, 1)
-        self.bn1 = batch_norm(planes)
+        self.bn1 = batch_norm(planes, bn_groups)
         # the stride sits on the 3x3 conv (resnet.py:13-15)
         self.conv2 = conv(
             planes, planes, 3, stride=stride, dilation=dilation, padding=dilation
         )
-        self.bn2 = batch_norm(planes)
+        self.bn2 = batch_norm(planes, bn_groups)
         self.conv3 = conv(planes, planes * 4, 1)
-        self.bn3 = batch_norm(planes * 4)
+        self.bn3 = batch_norm(planes * 4, bn_groups)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
-            nn.Sequential(conv(inplanes, planes * 4, 1, stride=stride), batch_norm(planes * 4))
+            nn.Sequential(conv(inplanes, planes * 4, 1, stride=stride),
+                          batch_norm(planes * 4, bn_groups))
             if has_downsample
             else None
         )
@@ -149,14 +151,15 @@ class Stage(nn.Sequential):
 
 def _stage(
     inplanes: int, planes: int, strides: Sequence[int], dilations: Sequence[int],
-    remat: bool = False,
+    remat: bool = False, bn_groups: int = 1,
 ) -> Stage:
     """Bottlenecks named '0'..'n-1'; the first carries the stride and the
     downsample (resnet.py:77-92)."""
     blocks = []
     for i, (s, d) in enumerate(zip(strides, dilations)):
         blocks.append(
-            Bottleneck(inplanes if i == 0 else planes * 4, planes, s, d, has_downsample=i == 0)
+            Bottleneck(inplanes if i == 0 else planes * 4, planes, s, d, has_downsample=i == 0,
+                       bn_groups=bn_groups)
         )
     return Stage(*blocks, remat=remat)
 
@@ -170,6 +173,8 @@ class ResNet101(nn.Module):
 
     ``remat_blocks``: every bottleneck of the four stages is a checkpoint
     segment in training (JAX resnet.py:170); the stem is not, as in JAX.
+
+    ``bn_groups``: every BatchNorm's ``stat_groups`` (JAX resnet.py:167).
     """
 
     # The eval-mode stem; a test may set it on an instance to the plain
@@ -184,6 +189,7 @@ class ResNet101(nn.Module):
         multi_grid: Tuple[int, ...] = (1, 2, 4),
         stem_s2d: bool = False,
         remat_blocks: bool = False,
+        bn_groups: int = 1,
     ):
         super().__init__()
         if output_stride == 16:
@@ -198,7 +204,7 @@ class ResNet101(nn.Module):
             self.conv1_s2d = conv(12, 64, 4)
         else:
             self.conv1 = conv(3, 64, 7, stride=2, padding=3)
-        self.bn1 = batch_norm(64)
+        self.bn1 = batch_norm(64, bn_groups)
         self.relu = nn.ReLU(inplace=True)
         self._folded = None
 
@@ -206,7 +212,7 @@ class ResNet101(nn.Module):
             n = layers[i]
             return _stage(
                 inplanes, planes, [strides[i]] + [1] * (n - 1), [dilations[i]] * n,
-                remat=remat_blocks,
+                remat=remat_blocks, bn_groups=bn_groups,
             )
 
         self.layer1 = stage(0, 64, 64)
@@ -219,6 +225,7 @@ class ResNet101(nn.Module):
             [strides[3]] + [1] * (len(multi_grid) - 1),
             [m * dilations[3] for m in multi_grid],
             remat=remat_blocks,
+            bn_groups=bn_groups,
         )
 
     def freeze(self, dtype: torch.dtype) -> None:

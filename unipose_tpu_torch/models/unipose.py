@@ -41,6 +41,7 @@ class UniPose(nn.Module):
         compute_dtype: torch.dtype = torch.float32,
         layers: Tuple[int, int, int, int] = FULL_DEPTH,
         freeze_bn: bool = False,
+        bn_groups: int = 1,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -48,9 +49,11 @@ class UniPose(nn.Module):
         self.stride = stride
         self.bbox_head = bbox_head
         self.compute_dtype = compute_dtype
-        self.backbone = ResNet101(output_stride=output_stride, layers=layers)
-        self.wasp = WASP(output_stride=output_stride, double_conv2=wasp_double_conv2)
-        self.decoder = Decoder(num_classes, bbox_head=bbox_head)
+        self.bn_groups = bn_groups
+        self.backbone = ResNet101(output_stride=output_stride, layers=layers, bn_groups=bn_groups)
+        self.wasp = WASP(output_stride=output_stride, double_conv2=wasp_double_conv2,
+                         bn_groups=bn_groups)
+        self.decoder = Decoder(num_classes, bbox_head=bbox_head, bn_groups=bn_groups)
 
     def train(self, mode: bool = True) -> "UniPose":
         super().train(mode)
@@ -78,11 +81,14 @@ class UniPose(nn.Module):
 
 
 def build_model(
-    config: ModelConfig, layers: Tuple[int, int, int, int] = FULL_DEPTH
+    config: ModelConfig, layers: Tuple[int, int, int, int] = FULL_DEPTH, bn_groups: int = 1
 ) -> nn.Module:
     """Factory mirroring the reference constructors (model/unipose.py:9,
     model/uniposeLSTM.py:68), by ``config.variant``.  ``layers`` cuts the
-    backbone's depth (tests and the golden checks)."""
+    backbone's depth (tests and the golden checks).  ``bn_groups`` > 1
+    gives every BatchNorm per-group statistics in training
+    (``TorchBatchNorm.stat_groups``; JAX unipose.py:90): the one-process
+    form of ``ModelConfig.sync_bn=False``."""
     if config.variant == "lstm":
         return UniPoseLSTM(
             num_classes=config.num_classes,
@@ -95,6 +101,7 @@ def build_model(
             head_positive_bias=config.head_positive_bias,
             remat_scan=config.remat_scan,
             remat_tower=config.remat_tower,
+            bn_groups=bn_groups,
         )
     if config.variant != "image":
         raise ValueError(f"unknown variant {config.variant!r}")
@@ -106,6 +113,7 @@ def build_model(
         compute_dtype=config.compute_dtype,
         layers=layers,
         freeze_bn=config.freeze_bn,
+        bn_groups=bn_groups,
     )
 
 
@@ -114,13 +122,14 @@ def init_model(
     seed: int = 0,
     device=None,
     layers: Tuple[int, int, int, int] = FULL_DEPTH,
+    bn_groups: int = 1,
 ) -> nn.Module:
     """Build a model of ``config.variant`` with the reference's init drawn
     from ``seed`` (on the CPU, so a seed gives the same weights on every
     device), in eval mode on ``device`` (the card unless the caller passes
     ``device="cpu"``)."""
     device = resolve_device(device)
-    model = build_model(config, layers=layers)
+    model = build_model(config, layers=layers, bn_groups=bn_groups)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device, memory_format=torch.channels_last).eval()
 

@@ -133,6 +133,7 @@ class UniPoseLSTM(nn.Module):
         head_positive_bias: bool = False,
         remat_scan: bool = False,
         remat_tower: bool = False,
+        bn_groups: int = 1,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -141,12 +142,13 @@ class UniPoseLSTM(nn.Module):
         self.freeze_bn = freeze_bn
         self.remat_scan = remat_scan
         ch = num_classes + 2
+        self.bn_groups = bn_groups
         self.backbone = ResNet101(output_stride=output_stride, layers=layers,
-                                  remat_blocks=remat_tower)
+                                  remat_blocks=remat_tower, bn_groups=bn_groups)
         # the video WASP has no BN in its GAP branch (waspVideo.py:56-59)
         self.wasp = WASP(output_stride=output_stride, double_conv2=wasp_double_conv2,
-                         gap_batchnorm=False)
-        self.decoder = Decoder(num_classes)
+                         gap_batchnorm=False, bn_groups=bn_groups)
+        self.decoder = Decoder(num_classes, bn_groups=bn_groups)
         self.lstm_0 = ConvLSTM0(ch)
         self.lstm = ConvLSTMCell(ch)
         for n, (cin, cout, k) in enumerate(

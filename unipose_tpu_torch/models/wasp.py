@@ -31,12 +31,13 @@ from unipose_tpu_torch.ops.kernels.wasp_cascade import (
 class AtrousModule(nn.Module):
     """conv -> BN -> ReLU (Reference: wasp.py:6-20)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, padding: int, dilation: int):
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, padding: int, dilation: int,
+                 bn_groups: int = 1):
         super().__init__()
         self.atrous_conv = conv(
             in_ch, out_ch, kernel_size, padding=padding, dilation=dilation
         )
-        self.bn = batch_norm(out_ch)
+        self.bn = batch_norm(out_ch, bn_groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.bn(self.atrous_conv(x)))
@@ -54,6 +55,7 @@ class WASP(nn.Module):
         double_conv2: bool = True,
         gap_batchnorm: bool = True,
         dropout_rate: float = 0.5,
+        bn_groups: int = 1,
     ):
         super().__init__()
         if output_stride == 16:
@@ -65,19 +67,20 @@ class WASP(nn.Module):
         d = self.dilations
         self.double_conv2 = double_conv2
         self.gap_batchnorm = gap_batchnorm
-        self.aspp1 = AtrousModule(2048, 256, 1, padding=0, dilation=d[0])
-        self.aspp2 = AtrousModule(256, 256, 3, padding=d[1], dilation=d[1])
-        self.aspp3 = AtrousModule(256, 256, 3, padding=d[2], dilation=d[2])
-        self.aspp4 = AtrousModule(256, 256, 3, padding=d[3], dilation=d[3])
+        g = bn_groups
+        self.aspp1 = AtrousModule(2048, 256, 1, padding=0, dilation=d[0], bn_groups=g)
+        self.aspp2 = AtrousModule(256, 256, 3, padding=d[1], dilation=d[1], bn_groups=g)
+        self.aspp3 = AtrousModule(256, 256, 3, padding=d[2], dilation=d[2], bn_groups=g)
+        self.aspp4 = AtrousModule(256, 256, 3, padding=d[3], dilation=d[3], bn_groups=g)
         # Sequential indices are the reference's keys (wasp.py:51-54).
         gap = [nn.AdaptiveAvgPool2d(1), conv(2048, 256, 1)]
         if gap_batchnorm:
-            gap.append(batch_norm(256))
+            gap.append(batch_norm(256, g))
         gap.append(nn.ReLU())
         self.global_avg_pool = nn.Sequential(*gap)
         self.conv2 = conv(256, 256, 1)
         self.conv1 = conv(1280, 256, 1)
-        self.bn1 = batch_norm(256)
+        self.bn1 = batch_norm(256, g)
         self.dropout = Dropout(dropout_rate)
         self._folded = None
 

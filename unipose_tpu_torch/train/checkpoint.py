@@ -8,6 +8,10 @@ exactly from it.  ``save_checkpoint(state, is_best, filename)`` keeps the
 reference's best-only semantics (utils/utils.py:53-56; trigger
 unipose.py:183-186).  ``CheckpointManager`` is the periodic story, the
 counterpart of JAX ``checkpoint.py:63-118`` (orbax there).
+
+Across data-parallel ranks the ``Trainer`` has rank 0 alone save and every
+rank restore; the state holds the bare model, never its DDP wrapper, so a
+file's keys carry no ``module.`` prefix and load into any number of ranks.
 """
 
 from __future__ import annotations

@@ -43,16 +43,19 @@ class TrainState:
         self.step = int(state["step"])
 
 
-def create_train_state(model_config: ModelConfig, train_config: TrainConfig, seed: int, device=None):
+def create_train_state(model_config: ModelConfig, train_config: TrainConfig, seed: int, device=None,
+                       bn_groups: int = 1):
     """Returns (model, optimizer, TrainState) on ``device`` (the card unless
     the caller passes ``device="cpu"``).
 
     The weights are the reference's init drawn from ``seed``; the dropout
     generator, on the model's device, is seeded with ``seed + 1``.  (The
     JAX signature's ``input_size`` shaped the dummy batch that traced its
-    init; PyTorch builds the parameters without one.)
+    init; PyTorch builds the parameters without one.)  ``bn_groups`` > 1
+    builds the model with per-group BatchNorm statistics over the batch
+    the model is handed (``TorchBatchNorm.stat_groups``; JAX state.py:34).
     """
-    model = init_model(model_config, seed=seed, device=device).train()
+    model = init_model(model_config, seed=seed, device=device, bn_groups=bn_groups).train()
     device = next(model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(seed + 1)
     use_dropout_generator(model, generator)

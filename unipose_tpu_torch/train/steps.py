@@ -105,6 +105,11 @@ def make_train_step(
     inside the loss and its gradient, in place of materialised targets and
     ``mse`` (the same function).  The video loss is ``heatmap_mse`` over
     the B*T frames times T, the sum of the per-frame means.
+
+    ``model`` may be the model under ``DistributedDataParallel`` (the
+    ``Trainer`` across ranks): each rank's loss is then its rows' mean,
+    and DDP's average of the ranks' gradients makes the update the
+    global batch's.
     """
 
     def step(state, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -18,6 +18,18 @@ The video variant (``ModelConfig(variant="lstm")``) trains on clip batches
 (``frames``, ``kpts``, ``centers``) of ``frame_memory`` frames and validates
 per frame, in dataset order.
 
+Data parallelism (JAX trainer.py:100-126, 154, 189-195): under a process
+group (``parallel/mesh.py``; ``cli/train.py`` under ``torch.distributed.run``)
+``TrainConfig.batch_size`` is the global batch; every rank loads it and
+uploads its rows (``shard_batch``), and its step runs on the model under
+``DistributedDataParallel``, so each rank's ``heatmap_mse`` is its rows'
+mean and the averaged gradient the global batch's.  ``ModelConfig.sync_bn``
+picks the BatchNorm statistics: global moments all-reduced across the ranks,
+or per-rank moments with pooled running statistics (``bn_groups`` = the
+data axis's size).  The dropout masks are the global batch's, each rank
+keeping its rows.  Only rank 0 logs, validates and writes checkpoints;
+every rank restores.
+
 One deliberate difference: the train step runs the fused loss
 (``heatmap_mse``, the same function as the materialised MSE, whose targets
 never exist in memory), where the JAX ``Trainer`` builds its step without it.
@@ -37,7 +49,9 @@ from unipose_tpu_torch.core.config import DATASETS, ModelConfig, TrainConfig, ef
 from unipose_tpu_torch.data.loader import get_dataloader
 from unipose_tpu_torch.eval.metrics import accuracy_from_coords
 from unipose_tpu_torch.eval.report import print_accuracies
+from unipose_tpu_torch.models.layers import set_bn_process_group, use_dropout_generator
 from unipose_tpu_torch.ops.resize import bilinear_resize
+from unipose_tpu_torch.parallel.mesh import data_parallel, make_mesh, replicate, shard_batch
 from unipose_tpu_torch.train.checkpoint import (
     CheckpointManager,
     save_checkpoint,
@@ -66,12 +80,15 @@ class Trainer:
         log_file: Optional[str] = None,
         print_summary: bool = False,
         device=None,
+        mesh=None,
     ):
         """``spec``/``loaders`` override what derives from
         ``model_config.dataset``; ``loaders`` is (train, val[, test]) with
         the loader protocol (``__len__``, ``set_epoch``, ``__iter__`` of
         numpy batches, ``batch_size``).  Runs on the card unless
-        ``device="cpu"``."""
+        ``device="cpu"``.  ``mesh`` overrides ``make_mesh(train_config.
+        mesh_shape, train_config.mesh_axes)``, where the default shape (1,)
+        stands for (-1,): the data axis over every rank."""
         self.model_config = model_config
         self.train_config = train_config
         # TrainConfig.sigma/stride resolve into the spec here; the loaders
@@ -100,21 +117,61 @@ class Trainer:
         else:
             self.train_loader = self.val_loader = None
 
+        shape = tuple(train_config.mesh_shape)
+        if shape == (1,):
+            # the default, one process's mesh: under a launcher every rank
+            # it started trains, so it is the data axis over all of them
+            shape = (-1,)
+        self.mesh = mesh or make_mesh(shape, train_config.mesh_axes)
+        self.is_main = self.mesh.rank == 0
+        if self.mesh.size != self.mesh.world:
+            raise ValueError(f"the mesh {self.mesh.shape} holds {self.mesh.size} of the "
+                             f"{self.mesh.world} ranks; every rank must train: set "
+                             "TrainConfig.mesh_shape=(-1,)")
+        if self.mesh.axis_size("time") > 1:
+            if not model_config.sync_bn:
+                raise ValueError("sync_bn=False (per-shard BN) is not supported together with "
+                                 "sequence/context parallelism: with the frames of one clip "
+                                 "spread over the 'time' axis, per-device statistics would "
+                                 "split clips. Use sync_bn=True.")
+            raise ValueError("a 'time' mesh axis (time-parallel video training) is not "
+                             "ported yet (ROADMAP.md Queue 1 item 6b)")
+        data = self.mesh.axis_size("data")
+        if train_config.batch_size % data:
+            raise ValueError(f"batch_size {train_config.batch_size} is not divisible by the "
+                             f"data-parallel shard count ({data})")
+        # sync_bn=False: one BN statistics group per data-parallel shard.
+        # A shard is a rank, so a rank's model keeps one group over its
+        # rows (create_train_state's bn_groups=1), and its BatchNorms pool
+        # only the running statistics across the ranks.
         self.model, self.optimizer, self.state = create_train_state(
             model_config, train_config, train_config.seed, device
         )
         self.device = next(self.model.parameters()).device
+        if self.mesh.distributed and data > 1:
+            import torch.distributed as dist
+
+            set_bn_process_group(self.model, dist.group.WORLD, sync=model_config.sync_bn)
+            use_dropout_generator(self.model, self.state.generator,
+                                  shard=(self.mesh.coordinate("data"), data))
         if pretrained:
             warm_start_from_torch(self.state, pretrained)
 
-        # auto-resume from the newest periodic checkpoint
+        # auto-resume from the newest periodic checkpoint (every rank reads
+        # it; rank 0 alone writes)
         self.ckpt_manager = None
         if train_config.checkpoint_dir:
             self.ckpt_manager = CheckpointManager(train_config.checkpoint_dir)
-            if self.ckpt_manager.restore_latest(self.state) is not None:
+            if self.ckpt_manager.restore_latest(self.state) is not None and self.is_main:
                 print(f"resumed from step {self.state.step} ({train_config.checkpoint_dir})")
 
-        self.train_step = make_train_step(self.model, self.optimizer, self.spec,
+        # the state keeps the bare model (its keys carry no ``module.``);
+        # the step runs on its DDP wrapper
+        train_model = self.model
+        if self.mesh.distributed:
+            train_model = data_parallel(self.model, self.mesh)
+            replicate(self.model, self.mesh)
+        self.train_step = make_train_step(train_model, self.optimizer, self.spec,
                                           video=self.video, fused_loss=True)
         self.val_step = make_val_step(self.model, self.spec, video=self.video)
 
@@ -125,7 +182,7 @@ class Trainer:
 
         # TSV metric log (counterpart of extra_utils/logger.py)
         self.logger = None
-        if log_file:
+        if log_file and self.is_main:
             self.logger = Logger(log_file, title=self.model_name)
             self.logger.set_names(["epoch", "train_loss", "mAP", "mPCK", "mPCKh"])
         self._epoch_stats = {}
@@ -134,7 +191,7 @@ class Trainer:
         # the loader and in the (synchronous) upload
         self.epoch_times = {}
 
-        if print_summary:
+        if print_summary and self.is_main:
             # parameter audit (counterpart of get_model_summary,
             # utils/utils.py:713-829, called at unipose.py:96-98)
             print(f"Total Parameters: {count_params(self.model):,}")
@@ -142,11 +199,29 @@ class Trainer:
                 print(f"  {name:<12} {n:>14,}")
 
     # ------------------------------------------------------------------
-    def _device_batch(self, batch):
+    def _upload(self, batch):
         return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device) for k in _KEEP if k in batch}
 
+    def _device_batch(self, batch):
+        """The rank's rows of a global batch, on the device."""
+        return self._upload(shard_batch({k: np.asarray(batch[k]) for k in _KEEP if k in batch},
+                                        self.mesh))
+
+    def _loss_sum(self, pending) -> float:
+        """The sum of the losses in ``pending``, averaged over the ranks
+        (each a mean over its rows, so the average is the global batch's);
+        one read back to the host."""
+        total = torch.stack(pending).sum()
+        if self.mesh.distributed:
+            import torch.distributed as dist
+
+            dist.all_reduce(total)
+            total = total / self.mesh.world
+        return total.item()
+
     def training(self, epoch: int) -> float:
-        print(f"Epoch {epoch}:")
+        if self.is_main:
+            print(f"Epoch {epoch}:")
         # Losses stay on the device between log points: reading one every
         # step would stall the host on the card at each update.
         pending = []
@@ -168,18 +243,19 @@ class Trainer:
             pending.append(metrics["loss"])
             n += 1
             if n % self.log_every == 0:
-                train_loss += torch.stack(pending).sum().item()  # one sync
+                train_loss += self._loss_sum(pending)  # one sync
                 pending = []
                 rate = n / (time.perf_counter() - t0)
-                print(
-                    f"  iter {n}/{len(self.train_loader)} "
-                    f"loss {train_loss / n:.6f} ({rate:.2f} it/s)"
-                )
+                if self.is_main:
+                    print(
+                        f"  iter {n}/{len(self.train_loader)} "
+                        f"loss {train_loss / n:.6f} ({rate:.2f} it/s)"
+                    )
         if pending:
-            train_loss += torch.stack(pending).sum().item()
+            train_loss += self._loss_sum(pending)
         self.epoch_times[epoch] = {"seconds": time.perf_counter() - t0, "steps": n,
                                    "loader_wait_s": waited, "upload_s": uploaded}
-        if self.ckpt_manager is not None:
+        if self.ckpt_manager is not None and self.is_main:
             with torch.profiler.record_function("checkpoint_save"):  # a span in traces
                 self.ckpt_manager.save(self.state.step, self.state)
         avg = train_loss / max(n, 1)
@@ -204,14 +280,29 @@ class Trainer:
             pad_to = n
         if n < pad_to:
             sub = {k: np.concatenate([v, np.repeat(v[-1:], pad_to - n, axis=0)]) for k, v in sub.items()}
-        return self._device_batch(sub), n, pad_to
+        return self._upload(sub), n, pad_to
 
     def validation(self, epoch: int) -> float:
         """Validation (reference behaviour: unipose.py:133-193) with the
         argmax of predictions and targets on the device and one fetch of
         all coordinates at the end; metrics per frame (a clip's frames in
         order), running means gated per joint by visibility
-        (unipose.py:163-176).  Returns the mAP."""
+        (unipose.py:163-176).  Returns the mAP.
+
+        Under data parallelism rank 0 validates alone, over the whole
+        validation set as one process does, so its metrics are the one
+        process's bit for bit; the other ranks wait for its mAP, which
+        every rank returns."""
+        if not self.mesh.distributed:
+            return self._validation(epoch)
+        import torch.distributed as dist
+
+        mAP = torch.tensor(self._validation(epoch) if self.is_main else 0.0,
+                           dtype=torch.float64, device=self.device)
+        dist.broadcast(mAP, src=0)
+        return mAP.item()
+
+    def _validation(self, epoch: int) -> float:
         k = self.model_config.num_classes
         AP = np.zeros(k + 1)
         PCK = np.zeros(k + 1)
