@@ -10,7 +10,10 @@ against its plain-stem, plain-WASP twin and the committed JAX golden
 heatmaps, then drives the main paths and shows through the kernels' launch
 counts that each ran through its kernels: the image server, built
 in-process, answering concurrent requests (``fused_stem``,
-``wasp_cascade``); the Trainer taking an epoch of steps and validating
+``wasp_cascade``); multi-person inference on the box-head UniPose
+(``multi_person``: the forward against its plain twin, the box channels'
+peaks on the card against the host detector, the people decoded, the FLOP
+summary in eval and train mode); the Trainer taking an epoch of steps and validating
 (``heatmap_mse`` forward and backward, and the two eval kernels in
 validation); a fresh Trainer taking ten steps on one batch, which must
 lower the loss; the full-width UniPose-LSTM (Penn Action 13 joints,
@@ -93,6 +96,7 @@ from unipose_tpu_torch.ops.kernels import build
 from unipose_tpu_torch.ops.kernels import fused_stem as fs
 from unipose_tpu_torch.ops.kernels import heatmap_mse as hm
 from unipose_tpu_torch.ops.kernels import wasp_cascade as wc
+from unipose_tpu_torch.postproc.multi_person import detect_peaks_device
 from unipose_tpu_torch.train import state as train_state
 from unipose_tpu_torch.train.state import create_train_state
 from unipose_tpu_torch.train.steps import make_centermaps, make_targets, make_train_step, mse, preprocess_images
@@ -309,13 +313,9 @@ def wasp_bound(b: int, s: int, dtype: torch.dtype, dilations) -> dict:
     once and the output written once, the multiply-adds this input needs
     (taps in the padding excluded), over the H100's peaks."""
     m, e = b * s * s, torch.finfo(dtype).bits // 8
-    taps = [
-        sum(abs((ky - 1) * d) < s and abs((kx - 1) * d) < s for ky in range(3) for kx in range(3))
-        for d in dilations
-    ]
-    macs = m * 2048 * 256 + sum(m * t * 256 * 256 for t in taps) + 4 * m * 256 * 256
-    macs += m * 1280 * 256 + b * 2048 * 256
-    flops = 2 * macs + m * 2048  # + the GAP sum
+    taps = [len(wc.active_taps(d, s)) for d in dilations]
+    # the op's FLOP formula counts the same multiply-adds (model_summary)
+    flops = 2 * wc.cascade_macs(b, s, dilations) + m * 2048  # + the GAP sum
     weights = 2048 * 256 + sum(t * 256 * 256 for t in taps) + 256 * 256 + 2048 * 256 + 1280 * 256
     nbytes = m * 2048 * e + weights * e + 6 * 256 * 4 + m * 256 * e
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
@@ -478,7 +478,7 @@ def stem_bound(b: int, h: int, w: int, dtype: torch.dtype, products: int) -> dic
     a conv output (147 for 7x7 weights, whose zero taps need none)."""
     e = torch.finfo(dtype).bits // 8
     hc, wc = (h + 1) // 2, (w + 1) // 2
-    flops = 2 * b * hc * wc * 64 * products
+    flops = 2 * fs.stem_macs(b, h, w, products)  # the op's FLOP formula at products=192
     nbytes = b * h * w * 3 * e + b * ((hc + 1) // 2) * ((wc + 1) // 2) * 64 * e + 192 * 64 * e + 2 * 64 * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return {
@@ -2049,6 +2049,224 @@ def phase_serve(gpu: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Slice 10: multi-person inference on the box-head UniPose, the FLOP summary
+# ---------------------------------------------------------------------------
+
+MP_BATCHES = (1, 4)  # fused_stem and wasp_cascade hold both in STEM_CASES / SERVING_KERNEL_BATCHES
+MP_REPS = 20
+# the two-person maps of tests/test_postproc_viz.py:50: per person its
+# center, top-left, bottom-left, top-right, bottom-right (row, col), and
+# the joint-1 peak inside its box
+MP_PEOPLE = (((10, 10), (4, 4), (16, 4), (4, 16), (16, 16), (8, 9)),
+             ((32, 32), (26, 26), (38, 26), (26, 38), (38, 38), (30, 31)))
+
+
+def _gaussian(dev, h: int, w: int, cy: float, cx: float, sigma: float) -> torch.Tensor:
+    gy, gx = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
+                            torch.arange(w, device=dev, dtype=torch.float32), indexing="ij")
+    return torch.exp(-((gx - cx) ** 2 + (gy - cy) ** 2) / (2 * sigma ** 2))
+
+
+def two_person_maps(dev) -> torch.Tensor:
+    """(1, 20, 46, 46) LSP maps built on the card: background, 14 joints,
+    5 box channels at 15, two people."""
+    from unipose_tpu_torch.postproc.multi_person import BOX_CHANNEL_START
+
+    start = BOX_CHANNEL_START["LSP"]
+    maps = torch.zeros(1, 20, 46, 46, device=dev)
+    for person in MP_PEOPLE:
+        for i, (r, c) in enumerate(person[:5]):
+            maps[0, start + i] += _gaussian(dev, 46, 46, r, c, 1.5)
+        maps[0, 1] += _gaussian(dev, 46, 46, *person[5], 1.0)
+    box = maps[0, start:]
+    box[box < 0.01] = 0
+    return maps
+
+
+def _peaks_equal_host(box: torch.Tensor) -> dict:
+    """The device peaks of every (image, box channel) of (B, 5, H, W) maps
+    against the host detector on the same maps copied to the host."""
+    from unipose_tpu_torch.postproc.multi_person import detect_peaks, peak_lists
+
+    b, c = box.shape[:2]
+    device_lists = peak_lists(detect_peaks_device(box).reshape(b * c, *box.shape[2:]))
+    host = box.cpu().numpy()
+    host_lists = [detect_peaks(host[i // c, i % c]) for i in range(b * c)]
+    return {"equal": device_lists == host_lists, "maps": b * c,
+            "peaks": sum(map(len, host_lists)), "per_map_max": max(map(len, host_lists))}
+
+
+def _summary_flops(text: str) -> int:
+    line = [ln for ln in text.splitlines() if ln.startswith("Compiled forward FLOPs: ")]
+    if not line:
+        raise AssertionError(f"model_summary printed no FLOP line:\n{text}")
+    return int(line[0].split(": ")[1].split(" ")[0].replace(",", ""))
+
+
+def phase_multi_person(dev, gpu: str, flush: torch.Tensor) -> dict:
+    """Multi-person inference on the box-head UniPose (LSP, 368x368,
+    ResNet-101 OS16, seeded weights, BN randomised), in eval mode: the
+    forward runs ``fused_stem`` and ``wasp_cascade`` once each and gives
+    (B, 15, 46, 46) heatmaps and (B, 5, 46, 46) box maps in f32;
+    ``detect_peaks_device`` finds the box channels' peaks on the card and
+    ``multi_person_kpts`` decodes the people on the host.
+
+    * f32, TF32 off, batch 1 and 4: heatmaps and box maps against the
+      plain-stem, plain-WASP twin at TOL[f32]; device peaks equal the host
+      detector's on the same maps.
+    * bf16, batch 1 and 4: the counted run (counts set to 0 just before:
+      a forward, the peaks and the decode at each batch), then a pass in
+      which each stem and WASP call is held against its plain version on
+      the same inputs at TOL[bf16]; device peaks equal host peaks; the
+      whole forward's gap to its plain twin printed, not held (seeded
+      full-depth maps reach ~1e7: one flipped bf16 rounding moves it more
+      than the kernels do).
+    * The designed two-person maps, built on the card: the two people.
+    * Times: the forward (CUDA events), the peaks on the card, the host
+      detector and the decode; the card's idle share over forward + peaks
+      + decode (profiler).
+    * ``model_summary`` of this full-width model at batch 2 in eval mode
+      (the ops' formulas) and train mode (cuDNN convs): their difference
+      must equal ``eval_minus_train_flops`` exactly.
+    Returns the counted run's launches."""
+    from unipose_tpu_torch.models.unipose import UniPose
+    from unipose_tpu_torch.postproc.multi_person import box_peaks, multi_person_kpts
+    from unipose_tpu_torch.utils.summary import eval_minus_train_flops, model_summary
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state = random_state_dict(UniPose(bbox_head=True), seed=31)
+
+    def box_head(dtype):
+        model = UniPose(bbox_head=True, compute_dtype=dtype)
+        load_numpy_state_dict(model, state)
+        return model.to(dev, memory_format=torch.channels_last).eval()
+
+    img = np.random.RandomState(32).randint(0, 256, (max(MP_BATCHES), 368, 368, 3)).astype(np.uint8)
+    x_all = preprocess_images(torch.from_numpy(img).to(dev)).permute(0, 3, 1, 2)
+    row = {"phase": "multi_person", "gpu": gpu, "tol": {"f32": TOL[torch.float32], "bf16": TOL[torch.bfloat16]}}
+    ok = True
+
+    f32 = box_head(torch.float32)
+    row["f32"] = {}
+    with torch.no_grad():
+        for b in MP_BATCHES:
+            x = x_all[:b].contiguous(memory_format=torch.channels_last)
+            kernels.reset_launches()
+            heat, box = f32(x)
+            launched = _eval_launches()
+            _plain_twin(f32)
+            heat_p, box_p = f32(x)
+            _kernel_twin(f32)
+            r = {"heat_vs_plain_twin": max_rel_err(heat, heat_p), "box_vs_plain_twin": max_rel_err(box, box_p),
+                 "launches": launched, "shapes": [list(heat.shape), list(box.shape)],
+                 "finite": bool(torch.isfinite(heat).all() and torch.isfinite(box).all()),
+                 "peaks": _peaks_equal_host(box)}
+            row["f32"][b] = r
+            ok &= (r["heat_vs_plain_twin"] < TOL[torch.float32] and r["box_vs_plain_twin"] < TOL[torch.float32]
+                   and launched == {"wasp_cascade": 1, "fused_stem": 1} and r["finite"] and r["peaks"]["equal"]
+                   and r["shapes"] == [[b, 15, 46, 46], [b, 5, 46, 46]])
+
+    # the FLOP summary, at batch 2 (train-mode BatchNorm needs two values a
+    # channel in the GAP branch), after a forward that folded the weights
+    x2 = x_all[:2].contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        f32(x2)
+    eval_text = model_summary(f32, x2)
+    train_text = model_summary(f32, x2, train=True)
+    expected = eval_minus_train_flops(2, 368, 368, 23, f32.wasp.dilations[1:])
+    flops = {"eval": _summary_flops(eval_text), "train": _summary_flops(train_text),
+             "batch": 2, "expected_eval_minus_train": expected}
+    flops["eval_minus_train"] = flops["eval"] - flops["train"]
+    flops["eval_minus_train_share_of_train"] = flops["eval_minus_train"] / flops["train"]
+    print(eval_text, flush=True)
+    print(train_text, flush=True)
+    row["flops"] = flops
+    ok &= flops["eval_minus_train"] == expected["total"] and not f32.training
+    del f32
+    torch.cuda.empty_cache()
+
+    bf16 = box_head(torch.bfloat16)
+
+    def infer(x):
+        heat, box = bf16(x)
+        maps = torch.cat([heat, box], 1)
+        return [multi_person_kpts(maps[i : i + 1], "LSP", 14) for i in range(x.shape[0])]
+
+    xs = {b: x_all[:b].contiguous(memory_format=torch.channels_last) for b in MP_BATCHES}
+    with torch.no_grad():
+        for b in MP_BATCHES:  # cold: cuDNN picks its algorithms, the weights are cast and folded
+            infer(xs[b])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        people = {b: infer(xs[b]) for b in MP_BATCHES}
+        torch.cuda.synchronize()
+        counts = _eval_launches()
+    row["launches"] = counts
+    row["people_by_batch"] = {b: [p[-1][0] + 1 if p else 0 for p in ps] for b, ps in people.items()}
+    ok &= counts == {"wasp_cascade": len(MP_BATCHES), "fused_stem": len(MP_BATCHES)}
+
+    row["bf16"] = {}
+    with torch.no_grad():
+        for b in MP_BATCHES:
+            x = xs[b]
+            calls = {"fused_stem": [], "wasp_cascade": []}
+            bf16.backbone.stem = _checked(fs.fused_stem, fs.fused_stem_reference, calls["fused_stem"])
+            bf16.wasp.cascade = _checked(wc.wasp_cascade, wc.wasp_cascade_reference, calls["wasp_cascade"])
+            heat, box = bf16(x)
+            _plain_twin(bf16)
+            heat_p, box_p = bf16(x)
+            _kernel_twin(bf16)
+            maps = torch.cat([heat, box], 1)
+            host_maps = maps.cpu().numpy()
+            decode_equal = all(
+                multi_person_kpts(maps[i : i + 1], "LSP", 14) == multi_person_kpts(host_maps[i : i + 1], "LSP", 14)
+                for i in range(b))
+            r = {"kernel_calls_vs_plain_max_rel_err": {k: max(v) for k, v in calls.items()},
+                 "kernel_calls_checked": {k: len(v) for k, v in calls.items()},
+                 "heat_vs_plain_twin_not_held": max_rel_err(heat, heat_p),
+                 "box_vs_plain_twin_not_held": max_rel_err(box, box_p),
+                 "finite": bool(torch.isfinite(maps).all()), "peaks": _peaks_equal_host(box),
+                 "decode_device_peaks_equal_host_peaks": decode_equal,
+                 "forward_ms": time_ms(lambda: bf16(x), MP_REPS, flush),
+                 "peaks_ms": time_ms(lambda: detect_peaks_device(box), MP_REPS, flush),
+                 "gpu": gpu}
+            t0 = time.perf_counter()
+            for _ in range(5):
+                box_peaks(maps[:1], "LSP")
+            r["box_peaks_to_host_lists_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+            t0 = time.perf_counter()
+            for _ in range(5):
+                box_peaks(host_maps[:1], "LSP")
+            r["host_detect_peaks_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+            t0 = time.perf_counter()
+            for i in range(b):
+                multi_person_kpts(maps[i : i + 1], "LSP", 14)
+            r["decode_ms"] = (time.perf_counter() - t0) * 1e3
+            r["profile"] = profile(lambda: infer(x), 3)
+            row["bf16"][b] = r
+            ok &= (all(len(v) == 1 and max(v) < TOL[torch.bfloat16] for v in calls.values())
+                   and r["finite"] and r["peaks"]["equal"] and decode_equal)
+
+    designed = two_person_maps(dev)
+    got = multi_person_kpts(designed, "LSP", 14)
+    want_points = [[i, c, r] for i, person in enumerate(MP_PEOPLE) for r, c in person[:5]]
+    got_points = [p for i in range(2) for p in got[i * 19 + 14 : i * 19 + 19]]
+    joint1 = [got[i * 19][1:] for i in range(2)]
+    row["two_people"] = {"people": got[-1][0] + 1 if got else 0, "entries": len(got), "box_points": got_points,
+                         "joint1_xy": joint1,
+                         "equal_host": got == multi_person_kpts(designed.cpu().numpy(), "LSP", 14)}
+    ok &= (len(got) == 2 * 19 and got_points == want_points and row["two_people"]["equal_host"]
+           and all(xy == [p[5][1], p[5][0]] for xy, p in zip(joint1, MP_PEOPLE)))
+    del bf16
+    torch.cuda.empty_cache()
+    emit(row)
+    if not ok:
+        raise AssertionError(f"multi_person failed its checks: {row}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Slice 8: conv_i8, the int8 front end, exported artifacts and their server
 # ---------------------------------------------------------------------------
 
@@ -2108,7 +2326,9 @@ def conv_i8_bound(b: int, cin: int, cout: int, k: int, ho: int, wo: int, h: int,
     """Least time for one conv_i8 call: the int8 input and weights read once
     and the int32 output written once; 2 operations a multiply-add, at the
     H100's dense int8 peak."""
-    ops = 2 * b * ho * wo * cout * k * k * cin
+    from unipose_tpu_torch.ops.kernels.conv_i8 import conv_macs
+
+    ops = 2 * conv_macs(b, ho, wo, cout, k, k, cin)  # the op's formula
     nbytes = b * h * w * cin + k * k * cin * cout + b * ho * wo * cout * 4
     t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
     return {"gop": ops / 1e9, "mbytes": nbytes / 1e6, "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -2536,6 +2756,7 @@ def main() -> int:
     hm_main, hm_video_step = phase_heatmap_kernel(dev, gpu, flush)
     phase_model(dev, gpu, flush)
     paths = {"serve": phase_serve(gpu)}
+    paths["multi_person"] = phase_multi_person(dev, gpu, flush)
     loaders = make_loaders("image", input_size=368, train_samples=64, val_samples=16,
                            batch_size=TRAIN_BATCH)
     phase_train_step_check(dev, _device_batch(next(iter(loaders[0])), dev))

@@ -12,7 +12,8 @@ The kernel is the registered op ``unipose::conv_i8``: its CPU
 implementation is the plain version, its CUDA implementation the launch,
 and a fake implementation gives ``torch.export`` the output's shape, so an
 exported int8 program calls the op.  ``conv_i8.launches`` counts inside the
-CUDA implementation.
+CUDA implementation.  An operation formula (:func:`conv_macs`) lets
+``FlopCounterMode`` count the op, whose inside it does not see.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from torch.utils.flop_counter import register_flop_formula
+
 from unipose_tpu_torch.ops.kernels import build
 
 TK = 32  # K bytes a kernel step (csrc TK): Kp is a multiple of it
@@ -29,6 +32,12 @@ TK = 32  # K bytes a kernel step (csrc TK): Kp is a multiple of it
 
 def out_size(n: int, k: int, stride: int, padding: int, dilation: int) -> int:
     return (n + 2 * padding - dilation * (k - 1) - 1) // stride + 1
+
+
+def conv_macs(b: int, ho: int, wo: int, n: int, kh: int, kw: int, cin: int) -> int:
+    """Multiply-adds of a conv with a (B, Ho, Wo, N) output and kh x kw x
+    Cin taps an output."""
+    return b * ho * wo * n * kh * kw * cin
 
 
 def pack_weight(w_hwio: torch.Tensor) -> torch.Tensor:
@@ -142,3 +151,8 @@ def _(x, w, kh, kw, stride, padding, dilation):
         (b, out_size(h, kh, stride, padding, dilation), out_size(wd, kw, stride, padding, dilation), w.shape[0]),
         dtype=torch.int32,
     )
+
+
+@register_flop_formula(torch.ops.unipose.conv_i8)
+def _(x_shape, w_shape, kh, kw, *args, out_shape=None, **kwargs) -> int:
+    return 2 * conv_macs(*out_shape, kh, kw, x_shape[3])

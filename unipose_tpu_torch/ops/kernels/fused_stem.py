@@ -18,6 +18,8 @@ implementation is the plain version, its CUDA implementation the launch,
 and a fake implementation gives ``torch.export`` the output's shape and
 dtype, so that an exported program calls the op and not this module's
 Python.  ``fused_stem.launches`` counts inside the CUDA implementation.
+A FLOP formula (:func:`stem_macs`) lets ``FlopCounterMode`` count the
+op, whose inside it does not see.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from torch.utils.flop_counter import register_flop_formula
 
 from unipose_tpu_torch.ops.kernels import build
 
@@ -62,6 +66,13 @@ def fold_stem_params(resnet) -> Dict[str, torch.Tensor]:
         "scale": s.contiguous(),
         "bias": (bn.bias.float() - bn.running_mean.float() * s).contiguous(),
     }
+
+
+def stem_macs(b: int, h: int, w: int, products: int = TAPS) -> int:
+    """Multiply-adds of the stem conv on (B, H, W, 3) images: ``products``
+    a conv output, 192 in the space-to-depth form the op computes (4x4
+    taps of 12 channels; 147 of them are the 7x7 kernel's)."""
+    return b * ((h + 1) // 2) * ((w + 1) // 2) * C_OUT * products
 
 
 def pack_stem_weights(w4: torch.Tensor) -> torch.Tensor:
@@ -208,3 +219,9 @@ def _fused_stem_cuda(x, w4, scale, bias, w16):
 def _(x, w4, scale, bias, w16):
     b, h, w, _ = x.shape
     return x.new_empty((b, (h + 3) // 4, (w + 3) // 4, C_OUT))
+
+
+@register_flop_formula(torch.ops.unipose.fused_stem)
+def _(x_shape, *args, out_shape=None, **kwargs) -> int:
+    b, h, w, _ = x_shape
+    return 2 * stem_macs(b, h, w)

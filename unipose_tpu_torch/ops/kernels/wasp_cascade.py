@@ -19,6 +19,8 @@ tensors in :data:`FOLDED` order, and the three dilations): its CPU
 implementation is the plain version, its CUDA implementation the launch,
 and a fake implementation gives ``torch.export`` the output's shape and
 dtype.  ``wasp_cascade.launches`` counts inside the CUDA implementation.
+A FLOP formula (:func:`cascade_macs`) lets ``FlopCounterMode`` count the
+op, whose inside it does not see.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from torch.utils.flop_counter import register_flop_formula
 
 from unipose_tpu_torch.ops.kernels import build
 
@@ -65,6 +69,16 @@ def active_taps(d: int, s: int) -> List[Tuple[int, int]]:
     a real pixel, in the kernel's order (csrc active_taps)."""
     return [(ky, kx) for ky in range(3) for kx in range(3)
             if abs((ky - 1) * d) < s and abs((kx - 1) * d) < s]
+
+
+def cascade_macs(b: int, s: int, dilations: Sequence[int]) -> int:
+    """Multiply-adds of the folded WASP's products on (B, S, S, 2048): the
+    1x1 of aspp1, each dilated 3x3 at its active taps, the collapsed conv2
+    (``W2 @ W2``) once on each of the four branches, the GAP branch's 1x1
+    and the 1x1 over the concatenation.  The GAP's sum is not a product."""
+    m = b * s * s
+    macs = m * C_IN * C_MID + sum(m * len(active_taps(d, s)) * C_MID * C_MID for d in dilations)
+    return macs + 4 * m * C_MID * C_MID + b * C_IN * C_MID + m * 5 * C_MID * C_MID
 
 
 def split_plan(b: int, s: int, dilations: Sequence[int], sms: int) -> List[Product]:
@@ -290,3 +304,8 @@ def _wasp_cascade_cuda(x, folded, dilations):
 def _(x, folded, dilations):
     b, s = x.shape[0], x.shape[1]
     return x.new_empty((b, s, s, C_MID))
+
+
+@register_flop_formula(torch.ops.unipose.wasp_cascade)
+def _(x_shape, folded_shapes, dilations, *, out_shape=None, **kwargs) -> int:
+    return 2 * cascade_macs(x_shape[0], x_shape[1], dilations)

@@ -5,12 +5,13 @@ Counterpart of ``unipose_tpu/viz/draw.py`` (Reference: utils/utils.py):
     scaled to image coordinates (:94-106);
   * ``draw_paint``: per-dataset limb sequences and colours, line overlays
     blended in (:109-197);
+  * ``draw_bbox``: a (center_x, center_y, w, h) box, its center, and
+    optionally the skeleton of a heatmap set (``draw_BBox``, :502-580);
   * ``heatmap_overlays``: per-channel JET overlays at the image's
     resolution (``getOutImages``, :477-498).
 
-A copy of the JAX module's functions (``draw_bbox``, for the box head, is
-not ported yet), with the upsample through ``ops/resize.py``.  Everything
-here runs on the host, in numpy and OpenCV.
+A copy of the JAX module's functions, with the upsample through
+``ops/resize.py``.  Everything here runs on the host, in numpy and OpenCV.
 """
 
 from __future__ import annotations
@@ -98,6 +99,31 @@ def draw_paint(
             cv2.line(cur, (y0, x0), (y1, x1), COLORS[i % len(COLORS)], 5)
         im = cv2.addWeighted(im, 0.2, cur, 0.8, 0)
 
+    if out_path:
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        cv2.imwrite(out_path, im)
+    return im
+
+
+def draw_bbox(
+    box,
+    image,
+    heatmaps: Optional[np.ndarray] = None,
+    dataset: str = "LSP",
+    out_path: Optional[str] = None,
+):
+    """Render a (center_x, center_y, w, h) box in red, a dot at its center,
+    and with ``heatmaps`` the skeleton of their keypoints (:func:`get_kpts`,
+    :func:`draw_paint`) over an image (a path or a BGR array).  Returns the
+    rendered array; writes it to ``out_path`` when given."""
+    im = _image(image)
+    cx, cy, bw, bh = [float(v) for v in np.asarray(box).reshape(-1)[:4]]
+    p1 = (int(cx - bw / 2), int(cy - bh / 2))
+    p2 = (int(cx + bw / 2), int(cy + bh / 2))
+    cv2.rectangle(im, p1, p2, (0, 0, 255), 2)
+    cv2.circle(im, (int(cx), int(cy)), radius=2, thickness=-1, color=(0, 0, 255))
+    if heatmaps is not None:
+        im = draw_paint(im, get_kpts(heatmaps), dataset)
     if out_path:
         os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
         cv2.imwrite(out_path, im)
