@@ -36,7 +36,10 @@ come the data-parallel phases: ``ddp_cli``, ``cli/train.py`` under
 ``torch.distributed.run`` as one NCCL rank under DDP on the same LSP files
 (checkpoint, resume, the checkpoint in one process, ``cli/eval.py``), and
 ``ddp_step_check``, two ranks sharing the card over gloo against one
-process on the global batch, in f32 and in f64.  Prints one JSON object
+process on the global batch, in f32 and in f64, and ``cp_step_check``,
+time-parallel video training (the UniPose-LSTM's clips over (data, time)
+meshes of ranks (1, 2) and (2, 2) sharing the card) against one process,
+in f32 and in f64.  Prints one JSON object
 a phase, a
 ``kernels`` line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -129,9 +132,10 @@ MODEL_PAIRS = 20
 
 # heatmap_mse: (batch, joints, sigma) at 46x46 (368x368, stride 8); LSP has
 # 14 joints (15 channels), NTID 19 (20); sigma 3 for images, 1 for video.
-# Batch 4 is a rank's share of ddp_step_check's global batch of 8.
+# Batch 4 is a rank's share of ddp_step_check's global batch of 8; (2, 14,
+# 1.0) a rank's 2 frames of cp_step_check's Penn Action clips.
 HM_CASES = ((1, 14, 3.0), (4, 14, 3.0), (8, 14, 3.0), (32, 14, 3.0), (1, 14, 1.0),
-            (8, 14, 1.0), (32, 14, 1.0), (8, 19, 3.0))
+            (8, 14, 1.0), (32, 14, 1.0), (8, 19, 3.0), (2, 14, 1.0))
 HM_MAIN = (torch.float32, 8, 14, 3.0)  # the train step's loss: f32, batch 8, LSP
 # (batch, H, W, joints, sigma) off 46x46: tiles that cross image boundaries,
 # Penn Action at 360x296 input, MPII and NTID at 128x128 and 64x64
@@ -1497,6 +1501,125 @@ def phase_ddp_step_check(dev, gpu: str) -> dict:
     return _sum_counts(counts)
 
 
+# cp_step_check: time-parallel video training.  (data, time) meshes of
+# ranks sharing the card over gloo, each with one clip a data index: 2
+# frames of 368x368 a rank.  Frames 4: Penn Action's 5 is prime and admits
+# no time axis but 5.  Its bounds are ddp_step_check's (DDP_TOL,
+# DDP_F32_STAT_TOL), for the same reason: the f64 leg is the gradient check.
+CP_MESHES = ((1, 2), (2, 2))
+CP_FRAMES = 4
+CP_TIMED_STEPS = 2
+
+
+def _one_process_video_step(dev, db, dtype, b: int):
+    """One process's video step on the global clip batch from the ranks'
+    init and dropout generator (full width, Penn Action, frame_memory
+    CP_FRAMES): (loss, gradients, BN statistics, step fn, state)."""
+    mc = ModelConfig(**VIDEO, frame_memory=CP_FRAMES, compute_dtype=dtype)
+    init = train_state.init_model
+    if dtype == torch.float64:  # the whole network in f64 (the loss stays f32)
+        train_state.init_model = lambda *a, **k: init(*a, **k).double()
+    try:
+        model, optimizer, state = create_train_state(mc, TrainConfig(batch_size=b), seed=0, device=dev)
+        step = make_train_step(model, optimizer, DATASETS["Penn_Action"], video=True, fused_loss=True)
+        loss = step(state, db)["loss"].item()
+    finally:
+        train_state.init_model = init
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    stats = {k: v.clone() for k, v in model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    return loss, grads, stats, step, state
+
+
+def phase_cp_step_check(dev, gpu: str) -> dict:
+    """Time-parallel video training against one process: for each (data,
+    time) mesh of CP_MESHES, n_data * n_time ranks (child processes sharing
+    the card over gloo with CUDA tensors) take their (clip, frame) block of
+    a global batch of n_data clips of CP_FRAMES frames through the video
+    ``Trainer`` under DDP (full-width UniPose-LSTM, ResNet-101, 368x368,
+    Penn Action's 13 joints, ``spmd_axes``, ``sync_bn=True``, TF32 off,
+    dropout on: each rank keeps its clips' frames of the global masks), in
+    f32 and with the network in f64; this process takes the same step from
+    the same init, generator and batch.  Held (ddp_step_check's bounds):
+    the loss and each BN statistic in both legs, the gradients before Adam
+    (the ranks' average) per tensor in the f64 leg; the f32 leg's gradient
+    gap is printed unbounded.  The ranks' parameters and buffers bit-equal
+    after the step; a rank's step: one ``heatmap_mse`` launch each way and
+    one ``gather_frames``.  Then the f32 step times (ranks on one card
+    check correctness; their time says nothing of scaling).  Returns the
+    launch counts of the checked f32 steps, summed over every rank of both
+    meshes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(37)
+    meshes, counts = {}, []
+    for n_data, n_time in CP_MESHES:
+        world, b = n_data * n_time, n_data
+        batch = {"frames": rng.randint(0, 256, (b, CP_FRAMES, 368, 368, 3)).astype(np.float32),
+                 "kpts": np.concatenate([rng.uniform(8, 360, (b, CP_FRAMES, 13, 2)),
+                                         np.ones((b, CP_FRAMES, 13, 1))], -1).astype(np.float32),
+                 "centers": rng.uniform(92, 276, (b, CP_FRAMES, 2)).astype(np.float32)}
+        modes = [{"name": "float32", "kind": "step", "dtype": "float32"},
+                 {"name": "float64", "kind": "step", "dtype": "float64"}]
+        with tempfile.TemporaryDirectory(prefix="unipose_cp_") as tmp:
+            np.savez(os.path.join(tmp, "batch.npz"), **batch)
+            spec = {"init": f"file://{tmp}/rdzv", "out": os.path.join(tmp, "step"), "device": "cuda:0",
+                    "backend": "gloo", "batch": os.path.join(tmp, "batch.npz"), "variant": "lstm",
+                    "layers": None, "size": 368, "weights": None, "seed": 0, "lr": 1e-4,
+                    "mesh": [n_data, n_time], "modes": modes, "timed_steps": CP_TIMED_STEPS,
+                    "tf32": False, "tensor_ranks": [0]}
+            with open(os.path.join(tmp, "step.json"), "w") as f:
+                json.dump(spec, f)
+            t0 = time.perf_counter()
+            _run_children([[sys.executable, str(WORKER), "step", os.path.join(tmp, "step.json")]] * world,
+                          lambda r: _child_env(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK="0"),
+                          tmp, f"cp_step_{n_data}x{n_time}")
+            ranks_s = time.perf_counter() - t0
+            ranks = [torch.load(f"{spec['out']}.rank{r}.pt", weights_only=False) for r in range(world)]
+
+        db = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        legs = {}
+        for dtype in (torch.float32, torch.float64):
+            got = [r[str(dtype).split(".")[1]] for r in ranks]
+            loss, grads, stats, step, state = _one_process_video_step(dev, db, dtype, b)
+            stat_errs = {k: max_rel_err(got[0]["stats"][k].to(dev), v) for k, v in stats.items()}
+            worst_s = max(stat_errs, key=stat_errs.get)
+            f32 = dtype == torch.float32
+            leg = {"loss_ranks": got[0]["loss"], "loss_one_process": loss,
+                   "loss_rel_err": abs(got[0]["loss"] - loss) / abs(loss),
+                   **_grad_errors(got[0]["grads"], grads, dev), "tensors": len(grads),
+                   "stat_max_rel_err": stat_errs[worst_s], "worst_stat": worst_s,
+                   "bounds": {"loss_rel_err": DDP_TOL,
+                              "stat_max_rel_err": DDP_F32_STAT_TOL if f32 else DDP_TOL,
+                              **({} if f32 else {"grad_max_rel_err": DDP_TOL})},
+                   "ranks_bit_equal": len({g["fingerprint"] for g in got}) == 1,
+                   "launches_per_rank": [g["launches"] for g in got],
+                   "gathers_per_rank": [g["gathers"] for g in got]}
+            if f32:
+                times = [call_ms(lambda: step(state, db)) for _ in range(CP_TIMED_STEPS + 1)]
+                leg.update(step_ms_ranks=[statistics.median(g["step_ms"]) for g in got],
+                           step_ms_one_process=statistics.median(times[1:]))
+                counts.append(_sum_counts([g["launches"] for g in got]))
+            legs[str(dtype)] = leg
+            del step, state, grads
+            torch.cuda.empty_cache()
+        meshes[f"{n_data}x{n_time}"] = {"ranks": world, "global_clips": b, "frames": CP_FRAMES,
+                                        "frames_per_rank": b * CP_FRAMES // world, "ranks_wall_s": ranks_s,
+                                        "by_dtype": legs}
+    row = {"phase": "cp_step_check", "backend": "gloo (CUDA tensors, one card)", "input": 368,
+           "model": "UniPose-LSTM, ResNet-101, Penn Action 13 joints", "tf32": False, "dropout": True,
+           "by_mesh": meshes, "gpu": gpu, "note": "ranks on one card: correctness, not scaling"}
+    emit(row)
+    ok = all(all(all(leg[m] < bound for m, bound in leg["bounds"].items()) and leg["ranks_bit_equal"]
+                 and all(c["heatmap_mse"] == 1 and c["heatmap_mse_backward"] == 1
+                         for c in leg["launches_per_rank"])
+                 and all(g == 1 for g in leg["gathers_per_rank"]) for leg in m["by_dtype"].values())
+             for m in meshes.values())
+    if not ok:
+        raise AssertionError(f"time-parallel ranks disagree with one process: {row}")
+    return _sum_counts(counts)
+
+
 def _train_summary(out: str) -> dict:
     lines = [ln for ln in out.splitlines() if ln.startswith("train summary ")]
     if len(lines) != 1:
@@ -2768,6 +2891,7 @@ def main() -> int:
         paths["train_cli"] = phase_train_cli(gpu, *lsp_roots)
         paths["ddp_cli"] = phase_ddp_cli(gpu, *lsp_roots)
     paths["ddp_step_check"] = phase_ddp_step_check(dev, gpu)
+    paths["cp_step_check"] = phase_cp_step_check(dev, gpu)
     video_state = phase_video(dev, gpu)
     paths["video_stream"] = phase_video_stream(dev, gpu, video_state, flush)
     video_serve = phase_serve_video(gpu)

@@ -41,6 +41,13 @@ def test_forbidden_matches_whole_names():
     assert not _forbidden("unipose_tpu_torch.models.wasp") and not _forbidden("jaxtyping")
 
 
+def test_the_scans_reach_the_time_parallel_module():
+    """parallel/cp.py (time parallelism) is imported by the subprocess and
+    scanned by the AST check below, as every module of the port is."""
+    assert "unipose_tpu_torch.parallel.cp" in _modules()
+    assert PORT / "parallel" / "cp.py" in _sources()
+
+
 def test_importing_the_port_loads_no_jax():
     mods = _modules() + ["chip_smoke"]
     code = (

@@ -1,6 +1,7 @@
-"""One rank of a data-parallel run of unipose_tpu_torch, started as a child
-process by the tests (tests/test_torch_sync_bn.py, test_torch_ddp*.py) and
-by chip_smoke.py's ``ddp_step_check``; pytest does not collect it, and it
+"""One rank of a data- or time-parallel run of unipose_tpu_torch, started as
+a child process by the tests (tests/test_torch_sync_bn.py,
+test_torch_ddp*.py, test_torch_cp_ranks.py) and by chip_smoke.py's
+``ddp_step_check`` and ``cp_step_check``; pytest does not collect it, and it
 imports neither jax nor the JAX package.
 
     python tests/torch_ddp_worker.py bn SPEC.json      # TorchBatchNorm across ranks
@@ -27,7 +28,18 @@ the checked one, on the card), ``tf32`` (false turns TF32 off),
 loss staying f32),
 ``tensor_ranks`` (the ranks that write their gradients and parameters;
 default every rank; the others write the loss, the BN statistics, the
-fingerprint and the launch counts).
+fingerprint and the launch counts), ``mesh`` ([n_data, n_time]: time
+parallelism, the video model with ``spmd_axes`` on a ("data", "time")
+mesh, ``frame_memory`` the batch's T; each rank writes its block's
+results).  A mode may also be a dict, whose results are under its
+``name``: ``{"name", "kind": "step", "dtype", "dropout", "remat", "grads"}``
+(one ``sync_bn=True`` step; ``remat``: ``remat_tower`` and ``remat_scan``
+on; ``grads`` (default true): the tensor ranks write their gradients, never
+their parameters) or
+``{"name", "kind": "eval"}`` (f32 eval heatmaps of the rank's block, NHWC,
+``heat``; and ``chunks``: the clip in two halves, the ConvLSTM state
+carried from the first to the second).  A step also writes ``gathers``,
+the forward calls of ``gather_frames``.
 
 ``cli`` runs ``cli/train.main`` on the arguments after ``--`` (the backbone
 cut to ``--layers``), then prints ``FINGERPRINT <rank> <sha256>`` of the
@@ -103,7 +115,7 @@ class OneBatch:
         yield {k: v.copy() for k, v in self.batch.items()}
 
 
-def _trainer(spec, batch, sync_bn: bool, dtype, dev):
+def _trainer(spec, batch, sync_bn: bool, dtype, dev, dropout: bool = True, remat: bool = False):
     from unipose_tpu_torch.core.config import DATASETS, ModelConfig, TrainConfig
     from unipose_tpu_torch.models.layers import Dropout
     from unipose_tpu_torch.models.unipose import FULL_DEPTH, init_model
@@ -115,9 +127,12 @@ def _trainer(spec, batch, sync_bn: bool, dtype, dev):
     ds = DATASETS[dataset]
     data_spec = dataclasses.replace(ds, input_size=spec["size"])
     mc = ModelConfig(dataset=dataset, num_classes=ds.num_joints, variant=spec["variant"],
-                     sync_bn=sync_bn)
+                     sync_bn=sync_bn, remat_tower=remat, remat_scan=remat)
     tc = TrainConfig(batch_size=len(batch["kpts"]), lr=spec.get("lr", 1e-4), seed=spec.get("seed", 0),
                      sigma=ds.sigma, model_name="", mesh_shape=(-1,))
+    if spec.get("mesh"):
+        mc = dataclasses.replace(mc, spmd_axes=("data", "time"), frame_memory=batch["frames"].shape[1])
+        tc = dataclasses.replace(tc, mesh_shape=tuple(spec["mesh"]), mesh_axes=("data", "time"))
     layers = tuple(spec["layers"]) if spec.get("layers") else FULL_DEPTH
     if dtype == torch.float64:  # the whole network in f64 (the loss stays f32)
         train_state.init_model = lambda *a, **k: init_model(*a, layers=layers, **k).double()
@@ -129,7 +144,7 @@ def _trainer(spec, batch, sync_bn: bool, dtype, dev):
     if spec.get("weights"):
         w = np.load(spec["weights"])
         trainer.model.load_state_dict({k: torch.from_numpy(w[k]) for k in w.files})
-    if not spec.get("dropout", True):
+    if not dropout:
         for m in trainer.model.modules():
             if isinstance(m, Dropout):
                 m.p = 0.0
@@ -155,29 +170,64 @@ def run_step(spec) -> dict:
     out = {}
     for dtype_name in spec.get("dtypes", ["float32"]):
         dtype = getattr(torch, dtype_name)
-        for sync_bn in spec["modes"]:
+        for sync_bn in (m for m in spec["modes"] if not isinstance(m, dict)):
             key = str(sync_bn) if dtype == torch.float32 else f"{sync_bn}:{dtype_name}"
-            out[key] = _step(spec, batch, sync_bn, dtype, dev)
+            out[key] = _step(spec, batch, sync_bn, dtype, dev, spec.get("dropout", True))
+    for mode in (m for m in spec["modes"] if isinstance(m, dict)):
+        if mode["kind"] == "eval":
+            out[mode["name"]] = _eval(spec, batch, dev)
+        else:
+            out[mode["name"]] = _step(spec, batch, True, getattr(torch, mode["dtype"]), dev,
+                                      mode.get("dropout", True), mode.get("remat", False),
+                                      ("grads",) if mode.get("grads", True) else ())
     return out
 
 
-def _step(spec, batch, sync_bn: bool, dtype, dev) -> dict:
+def _eval(spec, batch, dev) -> dict:
+    """The rank's block of the clips through the eval forward under the
+    mesh: the whole clip, then its two halves with the state carried."""
+    from unipose_tpu_torch.parallel.cp import shard_clip_batch, under_mesh
+    from unipose_tpu_torch.train.steps import forward_video_nhwc
+
+    trainer = _trainer(spec, batch, True, torch.float32, dev)
+    model = trainer.model.eval()
+
+    @torch.no_grad()
+    def forward(part, state=None):
+        block = trainer._upload(shard_clip_batch(part, trainer.mesh))
+        return under_mesh(trainer.mesh, forward_video_nhwc)(
+            model, block["frames"], block["centers"], trainer.spec, state)
+
+    heat, _ = forward(batch)
+    half = batch["frames"].shape[1] // 2
+    first, state = forward({k: v[:, :half] for k, v in batch.items()})
+    second, _ = forward({k: v[:, half:] for k, v in batch.items()}, state)
+    return {"heat": _host(heat), "chunks": [_host(first), _host(second)]}
+
+
+def _step(spec, batch, sync_bn: bool, dtype, dev, dropout: bool = True, remat: bool = False,
+          tensors=("grads", "params")) -> dict:
     from unipose_tpu_torch.ops import kernels
+    from unipose_tpu_torch.parallel import cp
     from unipose_tpu_torch.parallel.mesh import fingerprint
 
     rank, world = _rank_world()
-    trainer = _trainer(spec, batch, sync_bn, dtype, dev)
+    trainer = _trainer(spec, batch, sync_bn, dtype, dev, dropout, remat)
     kernels.reset_launches()
+    cp.gathers["gather_frames"] = 0
     loss = trainer.training(0)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     model = trainer.model
-    res = {"loss": loss, "launches": kernels.launch_counts(), "fingerprint": fingerprint(model).hex(),
+    res = {"loss": loss, "launches": kernels.launch_counts(), "gathers": cp.gathers["gather_frames"],
+           "fingerprint": fingerprint(model).hex(),
            "stats": {k: _host(v) for k, v in model.state_dict().items()
                      if k.endswith(("running_mean", "running_var", "num_batches_tracked"))}}
     if rank in spec.get("tensor_ranks", range(world)):
-        res["grads"] = {n: _host(p.grad) for n, p in model.named_parameters()}
-        res["params"] = {n: _host(p) for n, p in model.named_parameters()}
+        if "grads" in tensors:
+            res["grads"] = {n: _host(p.grad) for n, p in model.named_parameters()}
+        if "params" in tensors:
+            res["params"] = {n: _host(p) for n, p in model.named_parameters()}
     if spec.get("timed_steps") and dtype == torch.float32:
         db = trainer._device_batch(batch)
         sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda d: None)

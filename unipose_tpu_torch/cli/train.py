@@ -12,15 +12,18 @@ Data-parallel over N ranks, one card each (NCCL; gloo for CPU ranks):
 ``--batch_size`` is then the global batch, each rank training on its rows;
 rank 0 logs, validates and writes the checkpoints; a rerun resumes on
 every rank.  At the end rank 0 prints one line, ``train summary`` and a
-JSON object: the update count, the last validation's mAP and the kernels'
-launch counts of this process.
+JSON object: the update count, the last epoch's train loss, the last
+validation's mAP and the kernels' launch counts of this process.
+Time-parallel video training (``parallel/cp.py``): each clip's frames over
+``--time_parallel`` ranks, the clips over the rest (a ("data", "time") mesh):
+    python -m torch.distributed.run --nproc_per_node N -m unipose_tpu_torch.cli.train \
+        --model_arch uniposeLSTM --time_parallel n_time --frame_memory 4 ...
 
 Counterpart of ``unipose_tpu/cli/train.py``, with the same flags and
 defaults (video: clip batch 1, sigma 1, ``--frame_memory`` frames a clip),
 plus ``--device``, ``--input_size`` (LSP and Penn Action only: the other
 datasets' loaders resize to 368) and ``--profile_epoch`` (the epoch that
-``--profile_dir`` traces, with ``torch.profiler``).  ``--time_parallel``
-above 1 exits (ROADMAP.md Queue 1 item 6b).  Flags are not silently
+``--profile_dir`` traces, with ``torch.profiler``).  Flags are not silently
 overridden after parsing (unipose.py:261-267 hardcodes paths over the CLI
 values); presets supply defaults instead.
 """
@@ -77,8 +80,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--profile_epoch", default=0, type=int,
                    help="the epoch that --profile_dir traces")
     p.add_argument("--time_parallel", default=1, type=int,
-                   help="video only: shard each clip's frames over this many "
-                        "devices (not ported yet: ROADMAP.md Queue 1 item 6b)")
+                   help="video only: shard each clip's frames over a 'time' "
+                        "mesh axis of this many ranks (sequence/context "
+                        "parallelism, parallel/cp.py); the remaining ranks "
+                        "form the 'data' axis. 1 = off")
     p.add_argument("--input_size", default=368, type=int,
                    help="input resolution (LSP and Penn Action only; the "
                         "reference's is 368)")
@@ -87,14 +92,32 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def apply_time_parallel(model_config, train_config, n_time: int):
-    """``--time_parallel``: 1 leaves the configs as they are; sequence
-    parallelism waits for the parallelism slice."""
+def apply_time_parallel(model_config, train_config, n_time: int, world: int):
+    """Resolve ``--time_parallel`` into configs: a (data, time) mesh of the
+    ``world`` ranks and the model's ``spmd_axes`` (each clip's frames over
+    the time axis for the tower and the head, the ConvLSTM over every
+    frame of the clip on each rank: parallel/cp.py).  Refuses what JAX
+    refuses (cli/train.py:72-101), with its messages; the device count
+    there is the world of ranks here."""
     if n_time <= 1:
         return model_config, train_config
-    raise SystemExit(
-        f"--time_parallel {n_time}: sequence parallelism is not ported yet "
-        "(ROADMAP.md Queue 1 item 6b)"
+    if model_config.variant != "lstm":
+        raise SystemExit("--time_parallel applies to --model_arch uniposeLSTM only")
+    if world % n_time != 0:
+        raise SystemExit(
+            f"--time_parallel {n_time} does not divide the device count "
+            f"{world}: a (-1, {n_time}) mesh would strand "
+            f"{world % n_time} chip(s)"
+        )
+    if model_config.frame_memory % n_time != 0:
+        raise SystemExit(
+            f"--time_parallel {n_time} does not divide --frame_memory "
+            f"{model_config.frame_memory}: frames of one clip cannot shard "
+            "evenly over the 'time' axis"
+        )
+    return (
+        dataclasses.replace(model_config, spmd_axes=("data", "time")),
+        dataclasses.replace(train_config, mesh_shape=(-1, n_time), mesh_axes=("data", "time")),
     )
 
 
@@ -138,6 +161,13 @@ def dataset_spec(dataset: str, input_size: int):
     return dataclasses.replace(DATASETS[dataset], input_size=input_size)
 
 
+def _world() -> int:
+    """The ranks of the process group (1 without one)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 def make_trainer(args):
     """The ``Trainer`` that ``main`` runs: configs from the flags or the
     YAML file, ``--checkpoint_dir`` (from which it resumes), the loaders of
@@ -154,7 +184,7 @@ def make_trainer(args):
     if args.checkpoint_dir:
         train_config = dataclasses.replace(train_config, checkpoint_dir=args.checkpoint_dir)
     model_config, train_config = apply_time_parallel(
-        model_config, train_config, args.time_parallel
+        model_config, train_config, args.time_parallel, _world()
     )
     return Trainer(
         model_config,
@@ -189,7 +219,8 @@ def run(trainer, args) -> None:
     finally:
         trainer.finalize()
     if trainer.is_main:
-        print("train summary " + json.dumps({"step": trainer.state.step, "mAP": mAP,
+        loss = trainer._epoch_stats.get(trainer.train_config.epochs - 1)
+        print("train summary " + json.dumps({"step": trainer.state.step, "loss": loss, "mAP": mAP,
                                               "launches": kernels.launch_counts()}), flush=True)
 
 

@@ -6,9 +6,10 @@ as they are; ``ModelConfig`` holds the image and video models' fields, with
 ``compute_dtype`` a ``torch.dtype``; ``TrainConfig`` holds the training
 fields that the port reads.  Data parallelism is here: ``ModelConfig.
 sync_bn`` and ``TrainConfig.mesh_shape``/``mesh_axes``, whose axes are
-ranks (processes, one card each; ``parallel/mesh.py``).  ``spmd_axes``
-(time-parallel video training) waits for its slice; ``donate_state`` has
-no PyTorch meaning (a step updates the state in place) and is left out.
+ranks (processes, one card each; ``parallel/mesh.py``), and so is time
+parallelism: ``ModelConfig.spmd_axes`` with a ("data", "time") mesh
+(``parallel/cp.py``).  ``donate_state`` has no PyTorch meaning (a step
+updates the state in place) and is left out.
 The presets carry every field the port's configs have.
 """
 
@@ -188,6 +189,13 @@ class ModelConfig:
     # running statistics update from the pooled moments so the ranks'
     # buffers stay equal.
     sync_bn: bool = True
+    # Video variant only: time (sequence) parallelism, the mesh axis names
+    # (data_axis, time_axis).  When set, a train step under
+    # ``parallel.cp.under_mesh`` runs the tower and the head on the rank's
+    # frames of its clips and the ConvLSTM over every frame of each clip
+    # (its features gathered over the time axis); ``cli/train.py
+    # --time_parallel`` sets it with a ("data", "time") mesh.
+    spmd_axes: Optional[Tuple[Optional[str], Optional[str]]] = None
 
 
 # ---------------------------------------------------------------------------

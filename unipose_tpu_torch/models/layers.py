@@ -212,9 +212,10 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = p
         self.generator = None
-        # (rank, ranks) in data-parallel training: draw the mask of the
-        # global batch (ranks x this batch, rows in rank order) and keep
-        # this rank's rows, so the ranks' masks are the one process's
+        # (rank, ranks) in data-parallel training, (d, n_data, j, n_time,
+        # t_loc) in time-parallel: draw the mask of the global batch and
+        # keep this rank's rows, so that the ranks' masks are the one
+        # process's (see forward)
         self.shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -224,12 +225,21 @@ class Dropout(nn.Module):
         if self.shard is None:
             mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
         else:
-            rank, ranks = self.shard
+            d, n_data, j, n_time, t_loc = self.shard if len(self.shard) == 5 else self.shard + (0, 1, 1)
             b = x.shape[0]
+            if b % t_loc:
+                raise ValueError(f"{b} rows are not clips of {t_loc} frames")
             # the global batch's tensor laid out as x (rows outermost), so
-            # the generator fills it as it fills the one process's mask
-            full = x.new_empty_strided((b * ranks,) + tuple(x.shape[1:]), x.stride())
-            mask = full.bernoulli_(keep, generator=self.generator)[rank * b:(rank + 1) * b]
+            # the generator fills it as it fills the one process's mask;
+            # its rows are (clip, frame) of B = n_data * b_loc clips of
+            # T = n_time * t_loc frames, and this rank's are clips
+            # d * b_loc + i, frames j * t_loc + k: global row
+            # (d * b_loc + i) * T + j * t_loc + k (with one frame a row and
+            # n_time = 1, rows d * b .. (d + 1) * b)
+            full = x.new_empty_strided((b * n_data * n_time,) + tuple(x.shape[1:]), x.stride())
+            full = full.bernoulli_(keep, generator=self.generator)
+            blocks = full.unflatten(0, (n_data, b // t_loc, n_time, t_loc))
+            mask = blocks[d, :, j].reshape(x.shape)
         return x * mask / keep
 
     def extra_repr(self) -> str:
@@ -238,7 +248,10 @@ class Dropout(nn.Module):
 
 def use_dropout_generator(module: nn.Module, generator, shard=None) -> None:
     """Make every ``Dropout`` under ``module`` draw from ``generator``; with
-    ``shard = (rank, ranks)``, the rank's rows of the global batch's mask."""
+    ``shard = (rank, ranks)``, the rank's rows of the global batch's mask;
+    with ``shard = (d, n_data, j, n_time, t_loc)``, the rank at (d, j) of a
+    (data, time) mesh keeps its clips' rows, and of each clip its
+    ``t_loc`` frames."""
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator

@@ -127,6 +127,9 @@ class Int8VideoForward(Int8ImageForward):
     the model's own modules) from a fresh state; gates and carry in f32."""
 
     head = UniPoseLSTM.head
+    features = UniPoseLSTM.features
+    scan = UniPoseLSTM.scan
+    heat = UniPoseLSTM.heat
     temporal = UniPoseLSTM.temporal
 
     def __init__(self, model: nn.Module, fe: Int8Frontend, dtype: torch.dtype):

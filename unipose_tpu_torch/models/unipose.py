@@ -102,6 +102,7 @@ def build_model(
             remat_scan=config.remat_scan,
             remat_tower=config.remat_tower,
             bn_groups=bn_groups,
+            spmd_axes=config.spmd_axes,
         )
     if config.variant != "image":
         raise ValueError(f"unknown variant {config.variant!r}")

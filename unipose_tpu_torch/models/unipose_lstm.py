@@ -17,8 +17,8 @@ As in the JAX package, the tower (backbone, WASP, decoder) runs once,
 batched over the B*T frames, since nothing in it depends on the recurrent
 state; so do the ConvLSTM's x-gate convs and the head.  Only the h-gates
 and the gate arithmetic run in a loop over T.  Gates and carry are f32 under
-a bf16 compute dtype; ``hide`` goes back to the compute dtype for the next
-conv and for the head.
+a bf16 compute dtype (f64 in an f64 network); ``hide`` goes back to the
+compute dtype for the next conv and for the head.
 
 Training (JAX :131-138, :210-221, :266-270): in train mode the tower's
 BatchNorms take their moments over the B*T frames, and the decoder's
@@ -26,6 +26,13 @@ dropout draws from the train state's generator.  ``remat_tower`` makes each
 backbone bottleneck a checkpoint segment (``ResNet101(remat_blocks=True)``);
 ``remat_scan`` makes each frame's ConvLSTM step one, under autograd only
 (the x-gates, batched over the frames, stay outside it).
+
+Time parallelism (JAX ``spmd_axes``, :200-210, :247-254, :286-290;
+``parallel/cp.py``): called under ``cp.under_mesh``, a model with
+``spmd_axes`` is handed this rank's block of clips and frames, runs the
+tower on them, gathers the features of its clips' frames over the mesh's
+time axis, runs the ConvLSTM over every frame of each clip, and the head
+on its own frames again.
 
 Module names are the reference's ``state_dict`` keys: the per-gate convs
 ``lstm_0.conv_{g,i,o}_lstm`` and ``lstm.conv_{g,i,o,f}{x,h}_lstm``, and the
@@ -47,9 +54,15 @@ from unipose_tpu_torch.models.layers import conv
 from unipose_tpu_torch.models.resnet import ResNet101, checkpointed
 from unipose_tpu_torch.models.wasp import WASP
 from unipose_tpu_torch.ops.pooling import avg_pool2d
+from unipose_tpu_torch.parallel import cp
 
 GATE_ORDER = ("g", "i", "o", "f")
 State = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _gate_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The gates' and the carry's dtype: f32, or f64 in an f64 network."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def _gate_conv(ch: int) -> nn.Conv2d:
@@ -66,9 +79,10 @@ class ConvLSTM0(nn.Module):
         self.conv_o_lstm = _gate_conv(features)
 
     def forward(self, x: torch.Tensor) -> State:
-        g = torch.tanh(self.conv_g_lstm(x).float())
-        i = torch.sigmoid(self.conv_i_lstm(x).float())
-        o = torch.sigmoid(self.conv_o_lstm(x).float())
+        acc = _gate_dtype(x.dtype)
+        g = torch.tanh(self.conv_g_lstm(x).to(acc))
+        i = torch.sigmoid(self.conv_i_lstm(x).to(acc))
+        o = torch.sigmoid(self.conv_o_lstm(x).to(acc))
         cell = torch.tanh(g * i)
         return cell, o * cell
 
@@ -112,11 +126,13 @@ class ConvLSTMCell(nn.Module):
         return self._gates_conv(x, "x")
 
     def forward(self, state: State, xg: torch.Tensor) -> State:
-        """One step from the f32 (cell, hide) and this frame's x-gates."""
+        """One step from the (cell, hide) in the gates' dtype and this
+        frame's x-gates."""
         prev_cell, prev_hide = state
         hg = self._gates_conv(prev_hide.to(xg.dtype), "h")
-        g, i, o, f = (xg + hg).float().chunk(4, dim=1)
-        cell = torch.sigmoid(f) * prev_cell.float() + torch.sigmoid(i) * torch.tanh(g)
+        acc = _gate_dtype(xg.dtype)
+        g, i, o, f = (xg + hg).to(acc).chunk(4, dim=1)
+        cell = torch.sigmoid(f) * prev_cell.to(acc) + torch.sigmoid(i) * torch.tanh(g)
         return cell, torch.sigmoid(o) * torch.tanh(cell)
 
 
@@ -134,6 +150,7 @@ class UniPoseLSTM(nn.Module):
         remat_scan: bool = False,
         remat_tower: bool = False,
         bn_groups: int = 1,
+        spmd_axes: Optional[Tuple[Optional[str], Optional[str]]] = None,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -141,6 +158,7 @@ class UniPoseLSTM(nn.Module):
         self.compute_dtype = compute_dtype
         self.freeze_bn = freeze_bn
         self.remat_scan = remat_scan
+        self.spmd_axes = spmd_axes
         ch = num_classes + 2
         self.bn_groups = bn_groups
         self.backbone = ResNet101(output_stride=output_stride, layers=layers,
@@ -180,6 +198,44 @@ class UniPoseLSTM(nn.Module):
         feats, low_level = self.backbone(x)
         return self.decoder(self.wasp(feats), low_level)
 
+    def features(self, y: torch.Tensor, centermap: torch.Tensor) -> torch.Tensor:
+        """The tower's (B*T, K+1, h, w) and centermap (B, T, 1, H, W) -> the
+        ConvLSTM's input (B, T, K+2, h, w): the centermap average-pooled to
+        h x w and concatenated."""
+        b, t, _, h, w = centermap.shape
+        cm = avg_pool2d(centermap.reshape(b * t, 1, h, w).to(y.dtype), 9, 8, 1)
+        z = torch.cat([y, cm], dim=1)
+        return z.reshape(b, t, -1, *z.shape[2:])
+
+    def scan(self, z: torch.Tensor, initial_state: Optional[State] = None):
+        """The ConvLSTM over the T frames of z (B, T, K+2, h, w) -> (the T
+        hidden states (B, K+2, h, w) in z's dtype, final (cell, hide) in the
+        gates' dtype)."""
+        b, _, _, h8, w8 = z.shape
+        if initial_state is None:
+            cell, hide = self.lstm_0(z[:, 0])
+            hides = [hide.to(z.dtype)]
+            rest = z[:, 1:]
+        else:
+            cell, hide = initial_state
+            hides = []
+            rest = z
+        state = (cell.to(_gate_dtype(z.dtype)), hide.to(_gate_dtype(z.dtype)))
+        remat = self.remat_scan and self.training and torch.is_grad_enabled()
+        if rest.shape[1]:
+            xg = self.lstm.x_gates(rest.reshape(-1, *rest.shape[2:])).reshape(b, rest.shape[1], -1, h8, w8)
+            for k in range(rest.shape[1]):
+                state = checkpointed(self.lstm, state, xg[:, k]) if remat else self.lstm(state, xg[:, k])
+                hides.append(state[1].to(z.dtype))
+        return hides, state
+
+    def heat(self, hides) -> torch.Tensor:
+        """The head on t hidden states (B, K+2, h, w) -> (B, t, K+1, h, w) f32."""
+        x = torch.stack(hides, dim=1)
+        b, t = x.shape[:2]
+        heat = self.head(x.reshape(b * t, *x.shape[2:]).contiguous(memory_format=torch.channels_last))
+        return heat.float().reshape(b, t, self.num_classes + 1, *heat.shape[2:])
+
     def temporal(
         self,
         y: torch.Tensor,
@@ -193,31 +249,8 @@ class UniPoseLSTM(nn.Module):
         ``initial_state``: the (cell, hide) of a previous chunk; every frame
         then goes through ``ConvLSTMCell``.  Without it frame 0 goes through
         ``ConvLSTM0``, the reference's first-frame branch (:106-124)."""
-        b, t, _, h, w = centermap.shape
-        cm = avg_pool2d(centermap.reshape(b * t, 1, h, w).to(y.dtype), 9, 8, 1)
-        z = torch.cat([y, cm], dim=1)
-        h8, w8 = z.shape[2:]
-        z = z.reshape(b, t, -1, h8, w8)
-
-        if initial_state is None:
-            cell, hide = self.lstm_0(z[:, 0])
-            hides = [hide.to(z.dtype)]
-            rest = z[:, 1:]
-        else:
-            cell, hide = initial_state
-            hides = []
-            rest = z
-        state = (cell.float(), hide.float())
-        remat = self.remat_scan and self.training and torch.is_grad_enabled()
-        if rest.shape[1]:
-            xg = self.lstm.x_gates(rest.reshape(-1, *rest.shape[2:])).reshape(b, rest.shape[1], -1, h8, w8)
-            for k in range(rest.shape[1]):
-                state = checkpointed(self.lstm, state, xg[:, k]) if remat else self.lstm(state, xg[:, k])
-                hides.append(state[1].to(z.dtype))
-
-        hides = torch.stack(hides, dim=1).reshape(b * t, -1, h8, w8)
-        heat = self.head(hides.contiguous(memory_format=torch.channels_last))
-        return heat.float().reshape(b, t, self.num_classes + 1, h8, w8), state
+        hides, state = self.scan(self.features(y, centermap), initial_state)
+        return self.heat(hides), state
 
     def forward(
         self,
@@ -227,6 +260,21 @@ class UniPoseLSTM(nn.Module):
     ) -> Tuple[torch.Tensor, State]:
         """frames (B, T, 3, H, W) normalised, centermap (B, T, 1, H, W) ->
         (heatmaps (B, T, K+1, H/8, W/8) f32, final (cell, hide) f32, each
-        (B, K+2, H/8, W/8)); ``initial_state`` as in :meth:`temporal`."""
+        (B, K+2, H/8, W/8)); ``initial_state`` as in :meth:`temporal`.
+
+        With ``spmd_axes``, under ``cp.under_mesh``: frames and centermap
+        are this rank's (b, t) block of the clips, and so are the heatmaps;
+        the final state, after the clip's last frame, is every rank's of the
+        time axis.  Outside it the clips are taken whole, in eval mode only."""
         b, t, _, h, w = frames.shape
-        return self.temporal(self.tower(frames.reshape(b * t, 3, h, w)), centermap, initial_state)
+        y = self.tower(frames.reshape(b * t, 3, h, w))
+        mesh = cp.bound_mesh() if self.spmd_axes else None
+        if mesh is None:
+            if self.spmd_axes and self.training:
+                raise RuntimeError("a model with spmd_axes trains on a rank's block of the clips: "
+                                   "call it under parallel.cp.under_mesh(mesh, ...)")
+            return self.temporal(y, centermap, initial_state)
+        z = cp.gather_frames(self.features(y, centermap), cp.time_group(mesh))
+        hides, state = self.scan(z, initial_state)
+        j = mesh.coordinate("time")
+        return self.heat(hides[j * t:(j + 1) * t]), state

@@ -1,1 +1,1 @@
-"""Data parallelism over ranks (one process a card): ``mesh.py``."""
+"""Parallelism over ranks (one process a card): data (``mesh.py``) and time (``cp.py``)."""

@@ -94,6 +94,7 @@ def make_train_step(
     *,
     video: bool = False,
     fused_loss: bool = False,
+    time_shards: int = 1,
 ) -> Callable:
     """``step(state, batch) -> {"loss": 0-dim device tensor}``: one update
     of ``state`` (a ``TrainState`` over ``model`` and ``optimizer``) in
@@ -109,7 +110,10 @@ def make_train_step(
     ``model`` may be the model under ``DistributedDataParallel`` (the
     ``Trainer`` across ranks): each rank's loss is then its rows' mean,
     and DDP's average of the ranks' gradients makes the update the
-    global batch's.
+    global batch's.  ``time_shards``: the clips' frames are split over
+    this many ranks (time parallelism, run under ``cp.under_mesh``), so a
+    rank's ``frames`` hold T / time_shards frames of each clip, and its
+    loss, the mean over them, is multiplied by the clip's T.
     """
 
     def step(state, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -117,7 +121,7 @@ def make_train_step(
         kpts = batch["kpts"]
         if video:
             out, _ = forward_video_nhwc(model, batch["frames"], batch["centers"], spec)
-            t = out.shape[1]
+            t = out.shape[1] * time_shards
             out, kpts = _flat(out), _flat(kpts)
         else:
             out, t = _forward_nhwc(model, batch["image"]), 1

@@ -30,6 +30,16 @@ data axis's size).  The dropout masks are the global batch's, each rank
 keeping its rows.  Only rank 0 logs, validates and writes checkpoints;
 every rank restores.
 
+Time parallelism (JAX trainer.py:82-115, 193, 251; ``parallel/cp.py``): a
+video model with ``ModelConfig.spmd_axes`` on a ("data", "time") mesh
+(``cli/train.py --time_parallel``) gets each rank's (clip, frame) block of
+the global batch (``shard_clip_batch``), and its train step runs under
+``cp.under_mesh``.  Every rank holds as many frames, so each rank's
+``heatmap_mse`` over its frames times the clip's T, averaged by DDP, is the
+global step.  The BatchNorms take their moments over every rank
+(``sync_bn=True`` only), the dropout masks are the global batch's (the
+rank's clips and frames), and validation runs on rank 0 over whole clips.
+
 One deliberate difference: the train step runs the fused loss
 (``heatmap_mse``, the same function as the materialised MSE, whose targets
 never exist in memory), where the JAX ``Trainer`` builds its step without it.
@@ -51,6 +61,7 @@ from unipose_tpu_torch.eval.metrics import accuracy_from_coords
 from unipose_tpu_torch.eval.report import print_accuracies
 from unipose_tpu_torch.models.layers import set_bn_process_group, use_dropout_generator
 from unipose_tpu_torch.ops.resize import bilinear_resize
+from unipose_tpu_torch.parallel.cp import make_video_mesh, shard_clip_batch, under_mesh
 from unipose_tpu_torch.parallel.mesh import data_parallel, make_mesh, replicate, shard_batch
 from unipose_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -122,24 +133,41 @@ class Trainer:
             # the default, one process's mesh: under a launcher every rank
             # it started trains, so it is the data axis over all of them
             shape = (-1,)
-        self.mesh = mesh or make_mesh(shape, train_config.mesh_axes)
+        if mesh is None:
+            video_mesh = tuple(train_config.mesh_axes) == ("data", "time")
+            mesh = make_video_mesh(*shape) if video_mesh else make_mesh(shape, train_config.mesh_axes)
+        self.mesh = mesh
         self.is_main = self.mesh.rank == 0
         if self.mesh.size != self.mesh.world:
             raise ValueError(f"the mesh {self.mesh.shape} holds {self.mesh.size} of the "
                              f"{self.mesh.world} ranks; every rank must train: set "
                              "TrainConfig.mesh_shape=(-1,)")
-        if self.mesh.axis_size("time") > 1:
-            if not model_config.sync_bn:
-                raise ValueError("sync_bn=False (per-shard BN) is not supported together with "
-                                 "sequence/context parallelism: with the frames of one clip "
-                                 "spread over the 'time' axis, per-device statistics would "
-                                 "split clips. Use sync_bn=True.")
-            raise ValueError("a 'time' mesh axis (time-parallel video training) is not "
-                             "ported yet (ROADMAP.md Queue 1 item 6b)")
+        # time parallelism: a model with spmd_axes needs a mesh with those
+        # axes, checked before the state is built
+        self.cp = self.video and model_config.spmd_axes is not None
+        if self.cp:
+            missing = [a for a in model_config.spmd_axes if a and a not in self.mesh.axis_names]
+            if missing:
+                raise ValueError(f"model_config.spmd_axes={model_config.spmd_axes} needs mesh axes "
+                                 f"{missing} but the mesh has {self.mesh.axis_names}; set "
+                                 "TrainConfig.mesh_shape/mesh_axes to match, e.g. "
+                                 "mesh_shape=(-1, t), mesh_axes=('data', 'time')")
+        n_time = self.mesh.axis_size("time")
+        if (self.cp or n_time > 1) and not model_config.sync_bn:
+            raise ValueError("sync_bn=False (per-shard BN) is not supported together with "
+                             "sequence/context parallelism: with the frames of one clip "
+                             "spread over the 'time' axis, per-device statistics would "
+                             "split clips. Use sync_bn=True.")
         data = self.mesh.axis_size("data")
         if train_config.batch_size % data:
             raise ValueError(f"batch_size {train_config.batch_size} is not divisible by the "
                              f"data-parallel shard count ({data})")
+        # every rank holds b_loc * t_loc frames, so DDP's mean of the ranks'
+        # losses (each a mean over its frames) is the global batch's
+        self.time_shards = n_time if self.cp else 1
+        if model_config.frame_memory % self.time_shards:
+            raise ValueError(f"frame_memory {model_config.frame_memory} is not divisible by the "
+                             f"'time' axis ({self.time_shards})")
         # sync_bn=False: one BN statistics group per data-parallel shard.
         # A shard is a rank, so a rank's model keeps one group over its
         # rows (create_train_state's bn_groups=1), and its BatchNorms pool
@@ -148,12 +176,15 @@ class Trainer:
             model_config, train_config, train_config.seed, device
         )
         self.device = next(self.model.parameters()).device
-        if self.mesh.distributed and data > 1:
+        if self.mesh.distributed and self.mesh.size > 1:
             import torch.distributed as dist
 
             set_bn_process_group(self.model, dist.group.WORLD, sync=model_config.sync_bn)
-            use_dropout_generator(self.model, self.state.generator,
-                                  shard=(self.mesh.coordinate("data"), data))
+            shard = (self.mesh.coordinate("data"), data)
+            if self.time_shards > 1:  # the rank's clips, and its frames of each
+                shard += (self.mesh.coordinate("time"), self.time_shards,
+                          model_config.frame_memory // self.time_shards)
+            use_dropout_generator(self.model, self.state.generator, shard=shard)
         if pretrained:
             warm_start_from_torch(self.state, pretrained)
 
@@ -171,8 +202,10 @@ class Trainer:
         if self.mesh.distributed:
             train_model = data_parallel(self.model, self.mesh)
             replicate(self.model, self.mesh)
-        self.train_step = make_train_step(train_model, self.optimizer, self.spec,
-                                          video=self.video, fused_loss=True)
+        self.train_step = make_train_step(train_model, self.optimizer, self.spec, video=self.video,
+                                          fused_loss=True, time_shards=self.time_shards)
+        if self.cp:
+            self.train_step = under_mesh(self.mesh, self.train_step)
         self.val_step = make_val_step(self.model, self.spec, video=self.video)
 
         self.is_best = 0.0
@@ -203,9 +236,17 @@ class Trainer:
         return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device) for k in _KEEP if k in batch}
 
     def _device_batch(self, batch):
-        """The rank's rows of a global batch, on the device."""
-        return self._upload(shard_batch({k: np.asarray(batch[k]) for k in _KEEP if k in batch},
-                                        self.mesh))
+        """The rank's rows of a global batch, on the device: under time
+        parallelism its (clip, frame) block of clips of ``frame_memory``
+        frames."""
+        sub = {k: np.asarray(batch[k]) for k in _KEEP if k in batch}
+        if not self.cp:
+            return self._upload(shard_batch(sub, self.mesh))
+        t = sub["frames"].shape[1]
+        if t != self.model_config.frame_memory:
+            raise ValueError(f"a clip of {t} frames; time parallelism splits frame_memory="
+                             f"{self.model_config.frame_memory}")
+        return self._upload(shard_clip_batch(sub, self.mesh))
 
     def _loss_sum(self, pending) -> float:
         """The sum of the losses in ``pending``, averaged over the ranks
