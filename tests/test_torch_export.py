@@ -135,8 +135,8 @@ def test_exported_graph_calls_each_kernel_once_and_converts_no_parameter(dtype):
 def test_export_int8_frontend_roundtrip():
     """Twin of tests/test_export.py::test_export_int8_frontend_roundtrip: the
     int8 forward (front end at full depth, layer3/4 cut) exports, loads and
-    equals the live quantized forward; the program calls conv_i8 24 times
-    and the stem kernel not at all."""
+    equals the live quantized forward; the program calls the fused int8 conv
+    (conv_i8_requant) 24 times and the stem kernel not at all."""
     model = build_model(ModelConfig(), layers=(3, 4, 1, 1))
     load_numpy_state_dict(model, random_state_dict(model, seed=12))
     x = torch.from_numpy(_normalised(_images(3)))
@@ -149,7 +149,7 @@ def test_export_int8_frontend_roundtrip():
     assert got.shape == (2, SIZE // 8, SIZE // 8, 15)
     assert max_rel_err(got.numpy(), want.numpy()) <= 1e-6
     ops, bad = _kernel_nodes_and_conversions(ep)
-    assert ops == {"unipose.conv_i8": 24, "unipose.wasp_cascade": 1} and not bad, (ops, bad)
+    assert ops == {"unipose.conv_i8_requant": 24, "unipose.wasp_cascade": 1} and not bad, (ops, bad)
 
 
 def test_loading_needs_no_model_code(image_blob):

@@ -170,7 +170,7 @@ def test_serve_int8_artifact(tmp_path_factory, artifact_server):
     --int8_frontend artifact from the CLI serves as any image artifact."""
     path = export_artifact(tmp_path_factory, "int8.pt2", "--dataset", "LSP", "--int8_frontend", layers=INT8_DEPTH)
     ep = load_exported(open(path, "rb").read())
-    assert sum(str(n.target).startswith("unipose.conv_i8") for n in ep.graph.nodes) == 24
+    assert sum(str(n.target).startswith("unipose.conv_i8_requant") for n in ep.graph.nodes) == 24
     srv = artifact_server(serve_args(path))
     health = srv.get()
     assert health["num_joints"] == 14 and health["input"] == [1, SIZE, SIZE, 3]

@@ -61,6 +61,7 @@ def test_launch_counts_reset():
     kernels.reset_launches()
     assert kernels.launch_counts() == {
         "wasp_cascade": 0, "heatmap_mse": 0, "heatmap_mse_backward": 0, "fused_stem": 0, "conv_i8": 0,
+        "conv_i8_requant": 0,
     }
 
 
@@ -579,6 +580,88 @@ def test_conv_i8_equals_its_plain_version(cuda, name):
     assert torch.equal(got.cpu(), want)
 
 
+# The fused op's epilogues, as the front end calls them: (out_scale given,
+# residual dtype, dequantised dtype).
+CONV_I8_KINDS = {
+    "codes": (True, None, None),
+    "f32": (False, None, None),
+    "codes_res_f32": (True, torch.float32, None),
+    "codes_res_i8": (True, torch.int8, None),
+    "codes_res_i8_deq_bf16": (True, torch.int8, torch.bfloat16),
+    "codes_res_f32_deq_f32": (True, torch.float32, torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CONV_I8_SHAPES))
+def test_conv_i8_requant_equals_its_plain_version(cuda, name):
+    """Every epilogue at every front-end shape (and the misaligned ones):
+    codes, f32 outputs and dequantised outputs equal the plain version's,
+    on the card and on the CPU (true division on both), bit for bit."""
+    cin, cout, k, stride, padding, h = CONV_I8_SHAPES[name]
+    dilation = 2 if "dilated" in name else 1
+    g = torch.Generator().manual_seed(100 + sorted(CONV_I8_SHAPES).index(name))
+    x = torch.randint(-127, 128, (2, h, h, cin), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, k, cin, cout), generator=g, dtype=torch.int8)
+    x[0] = 127
+    # acc * scale at O(1): the codes spread over the range and clip
+    scale = (torch.rand(cout, generator=g) + 0.5) / (127 * 127 * (k * k * cin) ** 0.5 / 3)
+    bias = torch.randn(cout, generator=g)
+    ho = ci8.out_size(h, k, stride, padding, dilation)
+    packed = ci8.pack_weight(w).to(cuda)
+    for kind, (requant, res, deq) in CONV_I8_KINDS.items():
+        residual = None
+        if res == torch.float32:
+            residual = torch.randn(2, ho, ho, cout, generator=g) * 2
+        elif res == torch.int8:
+            residual = torch.randint(-127, 128, (2, ho, ho, cout), generator=g, dtype=torch.int8)
+        out_scale = 4.0 / 127 if requant else None
+        args = (stride, padding, dilation, out_scale, residual, 3.0 / 127, deq)
+        want = ci8.conv_i8_requant_reference(x, w, scale, bias, *args)
+        dev_args = (stride, padding, dilation, out_scale, None if residual is None else residual.to(cuda),
+                    3.0 / 127, deq)
+        plain = ci8.conv_i8_requant_reference(x.to(cuda), w.to(cuda), scale.to(cuda), bias.to(cuda), *dev_args)
+        before = ci8.conv_i8_requant.launches
+        got = ci8.conv_i8_requant(x.to(cuda), packed, scale.to(cuda), bias.to(cuda), k, k, *dev_args)
+        torch.cuda.synchronize()
+        assert ci8.conv_i8_requant.launches == before + 1
+        assert len(got) == len(want) == len(plain), kind
+        for a, b, c in zip(got, plain, want):
+            assert a.dtype == b.dtype == c.dtype, kind
+            assert torch.equal(a, b) and torch.equal(a.cpu(), c), kind
+        if requant:
+            assert int(got[0].max()) == 127, kind
+
+
+@pytest.mark.cuda
+def test_requant_divides_the_same_on_the_card(cuda):
+    """requant divides by a 0-dim tensor on the device: the CPU's quotient,
+    where a Python-float divisor multiplies by the f32 reciprocal."""
+    h = torch.randn(1 << 20, generator=torch.Generator().manual_seed(5)) * 60
+    s = 0.0173
+    assert torch.equal(ci8.requant(h.to(cuda), s).cpu(), ci8.requant(h, s))
+    assert torch.equal((h.to(cuda) / torch.full((), s, device=cuda)).cpu(), h / s)
+
+
+@pytest.mark.cuda
+def test_conv_i8_requant_divides_truly_at_the_ties(cuda):
+    """The epilogue's division at the codes' rounding ties ((j + 0.5) * s
+    and its neighbouring floats) and at random values: with x and w zero,
+    y is the bias, and every code equals the CPU's true division's."""
+    s = 0.0173
+    ties = (torch.arange(0, 127, dtype=torch.float32) + 0.5) * s
+    bits = ties.view(torch.int32)
+    vals = torch.cat([ties, (bits + 1).view(torch.float32), (bits - 1).view(torch.float32),
+                      torch.rand(2048, generator=torch.Generator().manual_seed(6)) * 140 * s,
+                      -torch.rand(64, generator=torch.Generator().manual_seed(7))])
+    n = vals.numel()
+    w = ci8.pack_weight(torch.zeros(1, 1, 16, n, dtype=torch.int8)).to(cuda)
+    x = torch.zeros(2, 3, 3, 16, dtype=torch.int8, device=cuda)
+    got = ci8.conv_i8_requant(x, w, torch.ones(n, device=cuda), vals.to(cuda), 1, 1, out_scale=s)[0]
+    want = ci8.requant(torch.relu(vals), s)
+    assert torch.equal(got.cpu(), want.expand(2, 3, 3, n))
+
+
 @pytest.mark.cuda
 def test_conv_i8_raises_on_what_it_does_not_take(cuda):
     w = ci8.pack_weight(torch.zeros(3, 3, 8, 16, dtype=torch.int8)).to(cuda)
@@ -625,7 +708,8 @@ def test_int8_artifact_runs_conv_i8_on_the_card(cuda):
     got = ep.module()(x)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert counts["conv_i8"] == 24 and counts["wasp_cascade"] == 1 and counts["fused_stem"] == 0
+    assert counts["conv_i8_requant"] == 24 and counts["conv_i8"] == 0
+    assert counts["wasp_cascade"] == 1 and counts["fused_stem"] == 0
     with torch.no_grad():
         want = forward(x)
     assert _max_rel_err(got, want) < TOL[torch.bfloat16]

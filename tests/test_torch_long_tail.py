@@ -282,7 +282,8 @@ def test_compiled_flops_is_none_when_counting_fails(box_head):
     assert "FLOPs" not in model_summary(port, torch.zeros(1, 3, 32, 32), train=True)
 
 
-@pytest.mark.parametrize("case", ["stem_368", "stem_odd", "wasp_all_taps", "wasp_skipped_taps", "conv_i8"])
+@pytest.mark.parametrize("case", ["stem_368", "stem_odd", "wasp_all_taps", "wasp_skipped_taps", "conv_i8",
+                                  "conv_i8_requant"])
 def test_op_formulas_equal_the_plain_counts(case):
     """Each registered op counts what its plain version's products count."""
     gen = torch.Generator().manual_seed(15)
@@ -303,6 +304,13 @@ def test_op_formulas_equal_the_plain_counts(case):
         w = ci.pack_weight(torch.randint(-8, 8, (3, 3, 24, 40), dtype=torch.int8, generator=gen))
         op = lambda: ci.conv_i8(x, w, 3, 3, 2, 1, 1)  # noqa: E731
         plain = lambda: ci.conv_i8_reference(x, ci.unpack_weight(w, 3, 3, 24), 2, 1, 1)  # noqa: E731
+        if case == "conv_i8_requant":
+            scale, bias = torch.full((40,), 1e-3), torch.zeros(40)
+            res = torch.zeros(2, 6, 5, 40, dtype=torch.int8)
+            op = lambda: ci.conv_i8_requant(x, w, scale, bias, 3, 3, 2, 1, 1, 0.1, res, 0.1,  # noqa: E731
+                                            torch.bfloat16)
+            plain = lambda: ci.conv_i8_requant_reference(  # noqa: E731
+                x, ci.unpack_weight(w, 3, 3, 24), scale, bias, 2, 1, 1, 0.1, res, 0.1, torch.bfloat16)
         want = 2 * ci.conv_macs(2, 6, 5, 40, 3, 3, 24)
     assert compiled_flops(op) == compiled_flops(plain) == want
 

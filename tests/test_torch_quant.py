@@ -161,7 +161,8 @@ def test_int8_frontend_drift_bounded(frontend):
         *(f"layer{L}.{i}.{p}" for L, n in ((1, 3), (2, 4)) for i in range(n)
           for p in ("relu1", "relu2", "out")),
     }
-    out = quant.frontend_int8(quant.quantize_frontend(folded), scales, x)
+    qconvs = quant.quantize_frontend(folded)
+    out = quant.frontend_int8(qconvs, scales, x, scales=quant.combined_scales(qconvs, scales))
     assert out.dtype == torch.float32
     assert rel_l2(out, ref) < 0.08  # JAX's bar: w8a8 through 8 requant points
 

@@ -20,7 +20,9 @@ gates and, in bf16, the bf16 conv weights are computed once and held as
 buffers, so a call folds and casts nothing and no weight cache (they key on
 ``data_ptr``, which a traced tensor does not have) runs in the trace.  The
 kernels are the registered ops ``unipose::fused_stem``,
-``unipose::wasp_cascade`` and ``unipose::conv_i8``: the program calls them,
+``unipose::wasp_cascade`` and ``unipose::conv_i8_requant`` (the int8 front
+end's conv with its epilogue; ``unipose::conv_i8`` registers beside it):
+the program calls them,
 and this module imports their registrations and nothing of ``models/``, so
 an artifact loads without the model code.
 

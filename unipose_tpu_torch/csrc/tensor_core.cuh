@@ -1,5 +1,6 @@
-// Tensor-core building blocks shared by the bf16 kernels of this directory:
-// shared-memory addresses, cp.async, ldmatrix and mma.sync (sm_80 and up).
+// Tensor-core building blocks shared by the kernels of this directory:
+// shared-memory addresses, cp.async, ldmatrix and mma.sync (sm_80 and up),
+// bf16 and s8.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,6 +15,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // 16 bytes from src, or 16 zero bytes when bytes == 0 (src is then not read).
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes = 16) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+// Wait until at most n of this thread's committed cp.async groups are pending.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
@@ -34,6 +43,17 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x32, row) * b (32x8, col), s8 operands, s32 accumulators.  The
+// byte layout of each fragment is that of the bf16 m16n8k16 one (a row of 32
+// bytes), so the same ldmatrix addressing loads both.
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

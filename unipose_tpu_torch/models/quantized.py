@@ -3,7 +3,8 @@ serving only.
 
 Counterpart of ``unipose_tpu/models/quantized.py``.  The ResNet front end
 (stem, layer1, layer2) runs quantized (``ops/quant.py``): int8 tensors
-between convs, s8 x s8 -> s32 on the ``conv_i8`` kernel, static calibrated
+between convs, each conv one call of the ``conv_i8_requant`` kernel (s8 x
+s8 -> s32 on the tensor cores, the f32 epilogue fused), static calibrated
 activation scales.  Layer3/4, WASP (its ``wasp_cascade`` kernel) and the
 decoder, and for video the ConvLSTM and the head, are the modules of the
 same model, so their weights are not copied.  Only ``output_stride=16`` is
@@ -31,9 +32,10 @@ from unipose_tpu_torch.ops.kernels import conv_i8 as conv_i8_kernel
 class Int8Frontend(nn.Module):
     """Prepared (offline) quantization state for the front end: per conv
     its packed int8 weights (the kernel's layout, held once), per-channel
-    scales and f32 biases as buffers (so an exported program holds them),
-    with the kernel's shape, stride and padding; and the activation scales,
-    python floats baked into the program as constants."""
+    scales, the epilogue's combined scales ``w_scale * s_in`` and f32
+    biases as buffers (so an exported program holds them), with the
+    kernel's shape, stride and padding; and the activation scales, python
+    floats baked into the program as constants."""
 
     def __init__(self, qconvs: Dict[str, quant.QuantConv], act_scales: Dict[str, float]):
         super().__init__()
@@ -45,6 +47,8 @@ class Int8Frontend(nn.Module):
             self.register_buffer(f"b{i}", qc.b.float().contiguous())
             self.specs[name] = (tuple(qc.w_i8.shape[:3]), qc.stride, qc.padding, qc.dilation)
         self.act_scales = {k: float(v) for k, v in act_scales.items()}
+        for i, scale in enumerate(quant.combined_scales(qconvs, self.act_scales).values()):
+            self.register_buffer(f"c{i}", scale.float().contiguous())
 
     @property
     def qconvs(self) -> Dict[str, quant.QuantConv]:
@@ -61,7 +65,9 @@ class Int8Frontend(nn.Module):
 
     def forward(self, x: torch.Tensor, out_dtype: torch.dtype = torch.float32):
         """NHWC normalised images -> (layer2 output, layer1 output), NHWC."""
-        return quant.frontend_int8(self.qconvs, self.act_scales, x, out_dtype=out_dtype, return_low=True)
+        scales = {name: getattr(self, f"c{i}") for i, name in enumerate(self.names)}
+        return quant.frontend_int8(self.qconvs, self.act_scales, x, out_dtype=out_dtype, return_low=True,
+                                   scales=scales)
 
 
 @torch.no_grad()

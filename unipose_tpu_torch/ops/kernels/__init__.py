@@ -9,12 +9,12 @@ from typing import Dict
 
 
 def wrappers():
-    from unipose_tpu_torch.ops.kernels.conv_i8 import conv_i8
+    from unipose_tpu_torch.ops.kernels.conv_i8 import conv_i8, conv_i8_requant
     from unipose_tpu_torch.ops.kernels.fused_stem import fused_stem
     from unipose_tpu_torch.ops.kernels.heatmap_mse import heatmap_mse, heatmap_mse_backward
     from unipose_tpu_torch.ops.kernels.wasp_cascade import wasp_cascade
 
-    return (wasp_cascade, heatmap_mse, heatmap_mse_backward, fused_stem, conv_i8)
+    return (wasp_cascade, heatmap_mse, heatmap_mse_backward, fused_stem, conv_i8, conv_i8_requant)
 
 
 def reset_launches() -> None:

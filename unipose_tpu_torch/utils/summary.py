@@ -10,7 +10,8 @@ analysis.
 
 The counter sees each operator once and not inside it.  The eval-mode
 forward calls the kernels as the registered ops ``unipose::fused_stem``,
-``unipose::wasp_cascade`` and ``unipose::conv_i8``, which it counts
+``unipose::wasp_cascade``, ``unipose::conv_i8`` and
+``unipose::conv_i8_requant``, which it counts
 through the formulas registered beside them (``ops/kernels``): 2 x the
 multiply-adds of the convolutions the op computes (the stem in its
 space-to-depth form, WASP with BN folded and conv2 collapsed to
