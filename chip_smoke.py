@@ -38,12 +38,15 @@ the unfused int8 front end) and video forward, the serving artifacts of
 (``serve_artifact``).  After ``train_cli``
 come the data-parallel phases: ``ddp_cli``, ``cli/train.py`` under
 ``torch.distributed.run`` as one NCCL rank under DDP on the same LSP files
-(checkpoint, resume, the checkpoint in one process, ``cli/eval.py``), and
+(checkpoint, resume, the checkpoint in one process, ``cli/eval.py``);
+``sharded_val``, two ranks sharing the card over gloo, each loading only
+its rows of the LSP validation batches and validating them, the
+coordinates gathered and scored on rank 0, against one process;
 ``ddp_step_check``, two ranks sharing the card over gloo against one
 process on the global batch, in f32 and in f64, and ``cp_step_check``,
 time-parallel video training (the UniPose-LSTM's clips over (data, time)
 meshes of ranks (1, 2) and (2, 2) sharing the card) against one process,
-in f32 and in f64.  Prints one JSON object
+in f32 and in f64, then validation under each mesh.  Prints one JSON object
 a phase, a
 ``kernels`` line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -85,6 +88,7 @@ from unipose_tpu_torch.cli import train as cli_train
 from unipose_tpu_torch.core.config import DATASETS, ModelConfig, TrainConfig
 from unipose_tpu_torch.data.bbc import BBCDataset
 from unipose_tpu_torch.data.fixtures import write_bbc_root, write_penn_root
+from unipose_tpu_torch.data.loader import get_dataloader
 from unipose_tpu_torch.data.synthetic import make_loaders
 from unipose_tpu_torch.eval.metrics import accuracy
 from unipose_tpu_torch.eval.video import make_stream_step, stream_video, stream_video_scan
@@ -103,6 +107,7 @@ from unipose_tpu_torch.ops.kernels import build
 from unipose_tpu_torch.ops.kernels import fused_stem as fs
 from unipose_tpu_torch.ops.kernels import heatmap_mse as hm
 from unipose_tpu_torch.ops.kernels import wasp_cascade as wc
+from unipose_tpu_torch.parallel.mesh import fingerprint, shard_rows
 from unipose_tpu_torch.postproc.multi_person import detect_peaks_device
 from unipose_tpu_torch.train import state as train_state
 from unipose_tpu_torch.train.state import create_train_state
@@ -1588,6 +1593,205 @@ def _one_process_video_step(dev, db, dtype, b: int):
     return loss, grads, stats, step, state
 
 
+class OneBatchLoader:
+    """A loader of one global batch (the loader protocol)."""
+
+    def __init__(self, batch: dict):
+        self.batch = batch
+        self.batch_size = len(batch["kpts"])
+
+    def __len__(self) -> int:
+        return 1
+
+    def set_epoch(self, epoch: int) -> None:
+        pass
+
+    def __iter__(self):
+        yield {k: v.copy() for k, v in self.batch.items()}
+
+
+def _coords_equal(got, want) -> bool:
+    """Two (pred, target) coordinate pairs, bit for bit."""
+    return got is not None and all(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+                                   for a, b in zip(got, want))
+
+
+def _cp_validation_leg(dev, batch: dict, got: list, n_time: int) -> dict:
+    """The ranks' validation of ``batch`` under a (data, time) mesh against
+    this process's ``Trainer.validation`` of the same clips (full-width
+    UniPose-LSTM, the ranks' seeded init, f32, TF32 off, cuDNN's
+    deterministic algorithms).  Held: the same weights (fingerprints), rank
+    0's scored coordinates and every rank's mAP equal to this process's,
+    bit for bit; a rank: one ``fused_stem`` and one ``wasp_cascade`` launch
+    (its frames of the one batch), one ``gather_frames``, one
+    ``all_gather`` of coordinates beside it and one ``broadcast``."""
+    spec = DATASETS["Penn_Action"]
+    mc = ModelConfig(**VIDEO, frame_memory=CP_FRAMES)
+    tc = TrainConfig(batch_size=len(batch["kpts"]), val_batch_size=len(batch["kpts"]), sigma=spec.sigma,
+                     model_name="")
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = Trainer(mc, tc, spec=spec, loaders=(None, OneBatchLoader(batch)), device=dev)
+        one_map = one.validation(0)
+        fp = fingerprint(one.model).hex()
+        want = one.val_coords
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del one
+    torch.cuda.empty_cache()
+    row = {"mAP_ranks": [g["mAP"] for g in got], "mAP_one_process": one_map,
+           "coords_bit_equal": _coords_equal(got[0]["coords"], want),
+           "frames_scored": int(want[0].shape[0]),
+           "same_weights": all(g["fingerprint"] == fp for g in got),
+           "launches_per_rank": [g["launches"] for g in got],
+           "gathers_per_rank": [g["gathers"] for g in got],
+           "collectives_per_rank": [{"all_gather": g["all_gather"], "broadcast": g["broadcast"]} for g in got],
+           "val_s_ranks": [g["val_s"] for g in got]}
+    gathers = 1 if n_time > 1 else 0
+    row["ok"] = (row["coords_bit_equal"] and row["same_weights"] and all(m == one_map for m in row["mAP_ranks"])
+                 and all(c["fused_stem"] == 1 and c["wasp_cascade"] == 1 for c in row["launches_per_rank"])
+                 and all(g["gathers"] == gathers and g["all_gather"] == 1 + gathers and g["broadcast"] == 1
+                         for g in got))
+    return row
+
+
+SHARDED_VAL_BATCH = 8  # train_cli's 20 LSP val JPGs: global batches of 8, 8 and 4 (ragged)
+SHARDED_VAL_REPEATS = 2  # the first validation warms the caches; the second is timed and counted
+SHARDED_LOADER_ROUNDS = 3  # epochs of the whole and each rank's loader, in turns, in this process
+
+
+def _padded_rows(batch: dict, shard, size: int) -> dict:
+    """``shard``'s rows of a global batch padded to ``size`` by repeating
+    its last sample (what a sharded loader yields)."""
+    n = len(batch["kpts"])
+    rows = shard_rows(size, shard)
+    return {k: np.concatenate([batch[k], np.repeat(batch[k][-1:], size - n, axis=0)])[rows]
+            for k in ("image", "kpts")}
+
+
+def _loader_seconds_in_turns(spec, val_dir: str, workers: int) -> dict:
+    """Seconds an epoch of the whole validation loader and of each rank's
+    (``shard``) on train_cli's LSP root, in this process, in turns (whole,
+    rank 0, rank 1, ..., whole) for SHARDED_LOADER_ROUNDS rounds: the
+    median of each."""
+    def loader(shard):
+        return get_dataloader("LSP", None, val_dir, spec.sigma, spec.stride, workers, SHARDED_VAL_BATCH,
+                              val_batch_size=SHARDED_VAL_BATCH, shard=shard)[1]
+
+    loaders = {"whole": loader(None), **{f"shard{r}": loader((r, DDP_RANKS)) for r in range(DDP_RANKS)}}
+    times = {k: [] for k in loaders}
+    for _ in range(SHARDED_LOADER_ROUNDS):
+        for name in (*loaders, "whole"):
+            t0 = time.perf_counter()
+            for _batch in loaders[name]:
+                pass
+            times[name].append(time.perf_counter() - t0)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_sharded_val(dev, gpu: str, val_dir: str) -> dict:
+    """Per-rank loading and sharded validation: two ranks (child processes
+    sharing the card over gloo with CUDA tensors) each build the
+    ``Trainer`` on train_cli's LSP validation root (20 JPGs, full-width
+    UniPose, f32, TF32 off, cuDNN's deterministic algorithms, validation
+    batch 8: three global batches, the last of 4 images, so rank 1's rows
+    of it are padding only), read their loader once (timed side by side)
+    and validate twice, the second timed and counted.  This process times
+    the whole loader against each rank's in turns (``_loader_seconds_in_
+    turns``) and validates as one process at batch 8 and at batch 4 (the
+    ranks' forward shapes).  Held: each rank's loaded rows byte-equal
+    to its rows of the padded global batch; the same weights; rank 0's
+    scored coordinates and every rank's mAP equal to this process's at
+    either batch, bit for bit; a rank's ``fused_stem`` and
+    ``wasp_cascade`` launches equal to the global batch count; one
+    ``all_gather`` and one ``broadcast`` a rank.  Two ranks on one card
+    check correctness, not scaling.  Returns the launch counts summed over
+    the ranks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    case = {"name": "image", "variant": "image", "val_dir": val_dir, "val_batch": SHARDED_VAL_BATCH,
+            "size": 368, "layers": None, "weights": None, "mesh": None, "repeats": SHARDED_VAL_REPEATS}
+    with tempfile.TemporaryDirectory(prefix="unipose_sharded_val_") as tmp:
+        spec = {"init": f"file://{tmp}/rdzv", "out": os.path.join(tmp, "val"), "device": "cuda:0",
+                "backend": "gloo", "tf32": False, "deterministic": True, "cases": [case]}
+        with open(os.path.join(tmp, "val.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        _run_children([[sys.executable, str(WORKER), "val", os.path.join(tmp, "val.json")]] * DDP_RANKS,
+                      lambda r: _child_env(RANK=str(r), WORLD_SIZE=str(DDP_RANKS), LOCAL_RANK="0"),
+                      tmp, "sharded_val")
+        ranks_s = time.perf_counter() - t0
+        got = [torch.load(f"{spec['out']}.rank{r}.pt", weights_only=False)["image"] for r in range(DDP_RANKS)]
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        tc = TrainConfig(batch_size=SHARDED_VAL_BATCH, val_batch_size=SHARDED_VAL_BATCH, model_name="")
+        one = Trainer(ModelConfig(), tc, val_dir=val_dir, device=dev)
+        whole = list(one.val_loader)  # also warms the files and cv2
+        loader_s = _loader_seconds_in_turns(one.spec, val_dir, tc.workers)
+        fp = fingerprint(one.model).hex()
+        runs = {}
+        for b in (SHARDED_VAL_BATCH, SHARDED_VAL_BATCH // DDP_RANKS):
+            if b != SHARDED_VAL_BATCH:
+                one.val_loader = get_dataloader("LSP", None, val_dir, one.spec.sigma, one.spec.stride,
+                                                tc.workers, tc.batch_size, val_batch_size=b)[1]
+            one.validation(0)  # warm
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mAP = one.validation(0)
+            torch.cuda.synchronize()
+            runs[b] = {"mAP": mAP, "val_s": time.perf_counter() - t0, "coords": one.val_coords,
+                       "launches": kernels.launch_counts()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del one
+    torch.cuda.empty_cache()
+
+    rows_equal = [len(g["rows"]) == len(whole) and all(
+        all(rows[k].tobytes() == v.tobytes() for k, v in _padded_rows(w, (r, DDP_RANKS), SHARDED_VAL_BATCH).items())
+        and rows["global_real"] == len(w["kpts"]) for rows, w in zip(g["rows"], whole))
+        for r, g in enumerate(got)]
+    images = sum(len(w["kpts"]) for w in whole)
+    rank_rows = [sum(len(rows["kpts"]) for rows in g["rows"]) for g in got]
+    row = {"phase": "sharded_val", "ranks": DDP_RANKS, "backend": "gloo (CUDA tensors, one card)",
+           "dtype": "torch.float32", "input": 368, "tf32": False, "cudnn_deterministic": True,
+           "val_images": images, "val_batch": SHARDED_VAL_BATCH, "global_batches": len(whole),
+           "global_real_rows": [len(w["kpts"]) for w in whole], "loader": got[0]["loader"],
+           "shards": [g["shard"] for g in got], "rows_byte_equal": rows_equal,
+           "loader_rows_ranks": rank_rows,
+           "loader_s_in_turns": loader_s,  # this process alone, median of the rounds
+           "loader_images_per_s_whole": images / loader_s["whole"],
+           "loader_rows_per_s_by_shard": [n / loader_s[f"shard{r}"] for r, n in enumerate(rank_rows)],
+           "loader_images_per_s_two_shards": images / max(loader_s[f"shard{r}"] for r in range(DDP_RANKS)),
+           "loader_s_ranks_concurrent": [g["loader_s"] for g in got],  # each rank's first epoch, side by side
+           "same_weights": all(g["fingerprint"] == fp for g in got),
+           "mAP_ranks": [g["mAP"] for g in got],
+           **{f"mAP_one_process_b{b}": r["mAP"] for b, r in runs.items()},
+           **{f"coords_bit_equal_one_process_b{b}": _coords_equal(got[0]["coords"], r["coords"])
+              for b, r in runs.items()},
+           "frames_scored": int(runs[SHARDED_VAL_BATCH]["coords"][0].shape[0]),
+           "val_s_ranks": [g["val_s"] for g in got],
+           **{f"val_s_one_process_b{b}": r["val_s"] for b, r in runs.items()},
+           "launches_per_rank": [g["launches"] for g in got],
+           "launches_one_process_b8": runs[SHARDED_VAL_BATCH]["launches"],
+           "collectives_per_rank": [{"all_gather": g["all_gather"], "broadcast": g["broadcast"]} for g in got],
+           "ranks_wall_s": ranks_s, "gpu": gpu,
+           "note": "two ranks on one card measure correctness, not scaling; the loader reads warm files"}
+    emit(row)
+    n = len(whole)
+    ok = (all(rows_equal) and row["same_weights"] and len(whole) == 3
+          and all(g["shard"] == (r, DDP_RANKS) for r, g in enumerate(got))
+          and all(row[f"coords_bit_equal_one_process_b{b}"] and all(m == r["mAP"] for m in row["mAP_ranks"])
+                  for b, r in runs.items())
+          and all(c["fused_stem"] == n and c["wasp_cascade"] == n for c in row["launches_per_rank"])
+          and all(c == {"all_gather": 1, "broadcast": 1} for c in row["collectives_per_rank"]))
+    if not ok:
+        raise AssertionError(f"sharded validation failed its checks: {row}")
+    return _sum_counts(row["launches_per_rank"])
+
+
 def phase_cp_step_check(dev, gpu: str) -> dict:
     """Time-parallel video training against one process: for each (data,
     time) mesh of CP_MESHES, n_data * n_time ranks (child processes sharing
@@ -1603,9 +1807,11 @@ def phase_cp_step_check(dev, gpu: str) -> dict:
     gap is printed unbounded.  The ranks' parameters and buffers bit-equal
     after the step; a rank's step: one ``heatmap_mse`` launch each way and
     one ``gather_frames``.  Then the f32 step times (ranks on one card
-    check correctness; their time says nothing of scaling).  Returns the
-    launch counts of the checked f32 steps, summed over every rank of both
-    meshes."""
+    check correctness; their time says nothing of scaling).  Then each
+    mesh's validation leg (``_cp_validation_leg``): every rank runs
+    ``Trainer.validation`` under the mesh on its block of the same clips.
+    Returns the launch counts of the checked f32 steps and of the
+    validations, summed over every rank of both meshes."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
@@ -1618,7 +1824,8 @@ def phase_cp_step_check(dev, gpu: str) -> dict:
                                          np.ones((b, CP_FRAMES, 13, 1))], -1).astype(np.float32),
                  "centers": rng.uniform(92, 276, (b, CP_FRAMES, 2)).astype(np.float32)}
         modes = [{"name": "float32", "kind": "step", "dtype": "float32"},
-                 {"name": "float64", "kind": "step", "dtype": "float64"}]
+                 {"name": "float64", "kind": "step", "dtype": "float64"},
+                 {"name": "val", "kind": "val"}]
         with tempfile.TemporaryDirectory(prefix="unipose_cp_") as tmp:
             np.savez(os.path.join(tmp, "batch.npz"), **batch)
             spec = {"init": f"file://{tmp}/rdzv", "out": os.path.join(tmp, "step"), "device": "cuda:0",
@@ -1661,9 +1868,11 @@ def phase_cp_step_check(dev, gpu: str) -> dict:
             legs[str(dtype)] = leg
             del step, state, grads
             torch.cuda.empty_cache()
+        val = _cp_validation_leg(dev, batch, [r["val"] for r in ranks], n_time)
+        counts.append(_sum_counts([r["val"]["launches"] for r in ranks]))
         meshes[f"{n_data}x{n_time}"] = {"ranks": world, "global_clips": b, "frames": CP_FRAMES,
                                         "frames_per_rank": b * CP_FRAMES // world, "ranks_wall_s": ranks_s,
-                                        "by_dtype": legs}
+                                        "by_dtype": legs, "validation": val}
     row = {"phase": "cp_step_check", "backend": "gloo (CUDA tensors, one card)", "input": 368,
            "model": "UniPose-LSTM, ResNet-101, Penn Action 13 joints", "tf32": False, "dropout": True,
            "by_mesh": meshes, "gpu": gpu, "note": "ranks on one card: correctness, not scaling"}
@@ -1672,7 +1881,7 @@ def phase_cp_step_check(dev, gpu: str) -> dict:
                  and all(c["heatmap_mse"] == 1 and c["heatmap_mse_backward"] == 1
                          for c in leg["launches_per_rank"])
                  and all(g == 1 for g in leg["gathers_per_rank"]) for leg in m["by_dtype"].values())
-             for m in meshes.values())
+             and m["validation"]["ok"] for m in meshes.values())
     if not ok:
         raise AssertionError(f"time-parallel ranks disagree with one process: {row}")
     return _sum_counts(counts)
@@ -3208,6 +3417,7 @@ def main() -> int:
         lsp_roots = write_lsp_roots(lsp)
         paths["train_cli"] = phase_train_cli(gpu, *lsp_roots)
         paths["ddp_cli"] = phase_ddp_cli(gpu, *lsp_roots)
+        paths["sharded_val"] = phase_sharded_val(dev, gpu, lsp_roots[1])
     paths["ddp_step_check"] = phase_ddp_step_check(dev, gpu)
     paths["cp_step_check"] = phase_cp_step_check(dev, gpu)
     video_state = phase_video(dev, gpu)

@@ -8,7 +8,9 @@ child processes: nothing in this process joins a process group):
    forward and its chunked pair; an f32 step, dropout off; an f64 step,
    dropout on; the same f64 step with ``remat_tower`` and ``remat_scan``.
 3. ``cli/train.py --model_arch uniposeLSTM --time_parallel 2`` over four
-   ranks under ``torch.distributed.run`` on Penn Action files.
+   ranks under ``torch.distributed.run`` on Penn Action files: each data
+   index's loader decodes its clips, and every rank validates its (clip,
+   frame) block of the padded validation batch under the mesh.
 
 Reduced depth (1, 1, 1, 1), 32x32, T = 4 (2 frames a rank), K = 13; the
 weights are JAX's (seed SEED, BN statistics randomised, carried across by
@@ -217,9 +219,11 @@ def _summary(out: str) -> dict:
 
 def test_cli_trains_on_a_data_by_time_grid(tmp_path):
     """Launch 3: four CPU ranks, --time_parallel 2 (a (2, 2) mesh), two
-    epochs of two steps (4 clips of 4 frames, clip batch 2); rank 0 writes
-    a checkpoint an epoch; every rank ends with the same parameters and
-    buffers; the loss is finite."""
+    epochs of two steps (4 clips of 4 frames, clip batch 2, a data index
+    loading its clip of each); every rank validates its block of the one
+    validation clip padded to 8 clips (data index 1 holds padding only),
+    under the mesh; rank 0 writes a checkpoint an epoch; every rank ends
+    with the same parameters and buffers; the loss is finite."""
     from unipose_tpu_torch.data.fixtures import write_penn_root
 
     root = write_penn_root(str(tmp_path / "penn"), "train", n_clips=4, n_frames=T, seed=2)

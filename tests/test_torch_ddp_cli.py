@@ -1,9 +1,13 @@
 """``cli/train.py`` under ``torch.distributed.run`` on the CPU: two gloo
 ranks (``--device cpu``) train UniPose from LSP files written by the test
 (reduced depth through tests/torch_ddp_worker.py's ``cli`` mode, 64x64,
-global batch 4), rank 0 alone writes the checkpoint and logs, a second
-launch resumes from it on both ranks, and the checkpoint loads into one
-process key for key, where ``cli/eval.py`` gives the ranks' mAP."""
+global batch 4), each rank's loaders decoding only its rows; every rank
+validates its rows of the 5 validation images (one global batch of 8,
+padded: rank 1's rows hold one image and three padding rows) and rank 0
+scores the gathered coordinates; rank 0 alone writes the checkpoint and
+logs, a second launch resumes from it on both ranks, and the checkpoint
+loads into one process key for key, where ``cli/eval.py`` gives the
+ranks' mAP."""
 
 import json
 import os
@@ -72,7 +76,7 @@ def test_two_rank_cli_checkpoints_resumes_and_matches_one_process(tmp_path, redu
     assert len(_fingerprints(out)) == 1
     assert sorted(os.listdir(ckpt), key=int) == ["2", "4"]
 
-    # rank 0 validated over the whole set as one process does
+    # the ranks validated their rows, rank 0 scored them as one process does
     mAP = eval_cli.main(["--dataset", "LSP", "--val_dir", val_dir, "--checkpoint_dir", str(ckpt),
                          "--input_size", str(SIZE), "--device", "cpu"])
     assert mAP == second["mAP"] and 0.0 <= mAP <= 1.0

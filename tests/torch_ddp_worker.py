@@ -1,15 +1,17 @@
 """One rank of a data- or time-parallel run of unipose_tpu_torch, started as
 a child process by the tests (tests/test_torch_sync_bn.py,
-test_torch_ddp*.py, test_torch_cp_ranks.py) and by chip_smoke.py's
-``ddp_step_check`` and ``cp_step_check``; pytest does not collect it, and it
-imports neither jax nor the JAX package.
+test_torch_ddp*.py, test_torch_cp_ranks.py, test_torch_sharded_val.py) and
+by chip_smoke.py's ``ddp_step_check``, ``cp_step_check`` and
+``sharded_val``; pytest does not collect it, and it imports neither jax nor
+the JAX package.
 
     python tests/torch_ddp_worker.py bn SPEC.json      # TorchBatchNorm across ranks
     python tests/torch_ddp_worker.py step SPEC.json    # Trainer steps under DDP
+    python tests/torch_ddp_worker.py val SPEC.json     # sharded validation from files
     python -m torch.distributed.run --standalone --nproc_per_node N \\
         tests/torch_ddp_worker.py cli [--layers 1,1,1,1] -- <cli/train.py arguments>
 
-``bn`` and ``step`` read the rank from ``RANK`` and the world from
+``bn``, ``step`` and ``val`` read the rank from ``RANK`` and the world from
 ``WORLD_SIZE`` (the caller sets both) and rendezvous at ``SPEC["init"]``
 (a ``file://`` path: no port is picked).  Each writes its results to
 ``<SPEC["out"]>.rank<r>.pt`` (CPU tensors, ``torch.save``) and prints
@@ -38,8 +40,20 @@ on; ``grads`` (default true): the tensor ranks write their gradients, never
 their parameters) or
 ``{"name", "kind": "eval"}`` (f32 eval heatmaps of the rank's block, NHWC,
 ``heat``; and ``chunks``: the clip in two halves, the ConvLSTM state
-carried from the first to the second).  A step also writes ``gathers``,
-the forward calls of ``gather_frames``.
+carried from the first to the second) or ``{"name", "kind": "val"}``
+(``Trainer.validation`` on the global batch as its one validation batch,
+f32, cuDNN's deterministic algorithms: ``_validate``'s results).  A step also writes ``gathers``, the
+forward calls of ``gather_frames``.
+
+``val``: ``cases``, a list of ``{"name", "variant", "val_dir", "val_batch",
+"size", "layers", "weights", "sigma", "mesh", "frame_memory", "repeats"}``
+(``mesh`` null: the data axis over every rank); each builds a ``Trainer``
+on ``val_dir`` (its loader sharded by the Trainer), reads every batch of
+its validation loader once (``rows``, timed), then runs ``validation``
+``repeats`` times, the last one counted: the mAP, rank 0's scored
+coordinates, the launch counts, the ``gather_frames`` calls and the
+``all_gather`` and ``broadcast`` calls, its seconds and the model's
+fingerprint.  Also ``tf32`` and ``deterministic`` (cuDNN's flag).
 
 ``cli`` runs ``cli/train.main`` on the arguments after ``--`` (the backbone
 cut to ``--layers``), then prints ``FINGERPRINT <rank> <sha256>`` of the
@@ -115,7 +129,8 @@ class OneBatch:
         yield {k: v.copy() for k, v in self.batch.items()}
 
 
-def _trainer(spec, batch, sync_bn: bool, dtype, dev, dropout: bool = True, remat: bool = False):
+def _trainer(spec, batch, sync_bn: bool, dtype, dev, dropout: bool = True, remat: bool = False,
+             validate: bool = False):
     from unipose_tpu_torch.core.config import DATASETS, ModelConfig, TrainConfig
     from unipose_tpu_torch.models.layers import Dropout
     from unipose_tpu_torch.models.unipose import FULL_DEPTH, init_model
@@ -139,8 +154,8 @@ def _trainer(spec, batch, sync_bn: bool, dtype, dev, dropout: bool = True, remat
         mc = dataclasses.replace(mc, compute_dtype=torch.float64)
     else:
         train_state.init_model = functools.partial(init_model, layers=layers)
-    trainer = Trainer(mc, tc, spec=data_spec, loaders=(OneBatch(batch), None), log_every=1,
-                      device=dev)
+    trainer = Trainer(mc, tc, spec=data_spec, log_every=1, device=dev,
+                      loaders=(OneBatch(batch), OneBatch(batch) if validate else None))
     if spec.get("weights"):
         w = np.load(spec["weights"])
         trainer.model.load_state_dict({k: torch.from_numpy(w[k]) for k in w.files})
@@ -176,6 +191,14 @@ def run_step(spec) -> dict:
     for mode in (m for m in spec["modes"] if isinstance(m, dict)):
         if mode["kind"] == "eval":
             out[mode["name"]] = _eval(spec, batch, dev)
+        elif mode["kind"] == "val":  # cuDNN's deterministic algorithms, as the caller's twin
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                out[mode["name"]] = _validate(_trainer(spec, batch, True, torch.float32, dev, validate=True),
+                                              dev)
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
         else:
             out[mode["name"]] = _step(spec, batch, True, getattr(torch, mode["dtype"]), dev,
                                       mode.get("dropout", True), mode.get("remat", False),
@@ -242,6 +265,91 @@ def _step(spec, batch, sync_bn: bool, dtype, dev, dropout: bool = True, remat: b
     return res
 
 
+def _validate(trainer, dev, repeats: int = 1) -> dict:
+    """``repeats`` validations of ``trainer``, the last one counted (see
+    the module docstring)."""
+    import torch.distributed as dist
+
+    from unipose_tpu_torch.ops import kernels
+    from unipose_tpu_torch.parallel import cp
+    from unipose_tpu_torch.parallel.mesh import fingerprint
+
+    calls = {"all_gather": 0, "broadcast": 0}
+    originals = {name: getattr(dist, name) for name in calls}
+
+    def counted(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return originals[name](*a, **k)
+        return call
+
+    for _ in range(repeats - 1):
+        trainer.validation(0)
+    kernels.reset_launches()
+    cp.gathers["gather_frames"] = 0
+    for name in calls:
+        setattr(dist, name, counted(name))
+    try:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        mAP = trainer.validation(0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+    return {"mAP": mAP, "coords": trainer.val_coords, "is_best": trainer.is_best, "val_s": seconds,
+            "launches": kernels.launch_counts(), "gathers": cp.gathers["gather_frames"], **calls,
+            "fingerprint": fingerprint(trainer.model).hex()}
+
+
+def run_val(spec) -> dict:
+    """Per case: a Trainer on ``val_dir`` (module docstring), its loader's
+    rows, then its validation."""
+    import dataclasses as dc
+
+    from unipose_tpu_torch.core.config import DATASETS, ModelConfig, TrainConfig
+    from unipose_tpu_torch.models.unipose import FULL_DEPTH, init_model
+    from unipose_tpu_torch.train import state as train_state
+    from unipose_tpu_torch.train.trainer import _KEEP, Trainer
+
+    if not spec.get("tf32", True):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = bool(spec.get("deterministic", False))
+    dev = _join(spec)
+    out = {}
+    for case in spec["cases"]:
+        video = case["variant"] == "lstm"
+        dataset = "Penn_Action" if video else "LSP"
+        ds = DATASETS[dataset]
+        mc = ModelConfig(dataset=dataset, num_classes=ds.num_joints, variant=case["variant"],
+                         frame_memory=case.get("frame_memory", 5))
+        tc = TrainConfig(batch_size=case["val_batch"], val_batch_size=case["val_batch"],
+                         sigma=case.get("sigma", ds.sigma), model_name="", seed=case.get("seed", 0))
+        if case.get("mesh"):
+            mc = dc.replace(mc, spmd_axes=("data", "time"))
+            tc = dc.replace(tc, mesh_shape=tuple(case["mesh"]), mesh_axes=("data", "time"))
+        layers = tuple(case["layers"]) if case.get("layers") else FULL_DEPTH
+        train_state.init_model = functools.partial(init_model, layers=layers)
+        trainer = Trainer(mc, tc, val_dir=case["val_dir"], spec=dc.replace(ds, input_size=case["size"]),
+                          device=dev)
+        if case.get("weights"):
+            w = np.load(case["weights"])
+            trainer.model.load_state_dict({k: torch.from_numpy(w[k]) for k in w.files})
+        t0 = time.perf_counter()
+        rows = [{k: b[k] for k in (*_KEEP, "global_real") if k in b} for b in trainer.val_loader]
+        loader_s = time.perf_counter() - t0
+        res = _validate(trainer, dev, case.get("repeats", 1))
+        out[case["name"]] = {**res, "rows": rows, "loader_s": loader_s,
+                             "shard": getattr(trainer.val_loader, "shard", None),
+                             "loader": type(trainer.val_loader).__name__}
+        del trainer
+    return out
+
+
 def run_cli(argv) -> None:
     from unipose_tpu_torch.cli import train as cli_train
     from unipose_tpu_torch.models.unipose import init_model
@@ -265,7 +373,7 @@ def main() -> None:
         return
     with open(sys.argv[2]) as f:
         spec = json.load(f)
-    result = {"bn": run_bn, "step": run_step}[mode](spec)
+    result = {"bn": run_bn, "step": run_step, "val": run_val}[mode](spec)
     rank, _ = _rank_world()
     torch.save(result, f"{spec['out']}.rank{rank}.pt")
     from unipose_tpu_torch.parallel.mesh import shutdown_distributed

@@ -9,11 +9,14 @@ Usage (video, Reference: uniposeLSTM.py:274-301):
 Runs on the CUDA card; ``--device cpu`` runs on the CPU (the tests do).
 Data-parallel over N ranks, one card each (NCCL; gloo for CPU ranks):
     python -m torch.distributed.run --nproc_per_node N -m unipose_tpu_torch.cli.train ...
-``--batch_size`` is then the global batch, each rank training on its rows;
-rank 0 logs, validates and writes the checkpoints; a rerun resumes on
-every rank.  At the end rank 0 prints one line, ``train summary`` and a
-JSON object: the update count, the last epoch's train loss, the last
-validation's mAP and the kernels' launch counts of this process.
+``--batch_size`` (and the validation batch) is then the global batch:
+each rank's loaders decode only its rows, and it trains and validates on
+them; rank 0 scores the validation's gathered coordinates, logs and
+writes the checkpoints; a rerun resumes on every rank.  At the end rank 0
+prints one line, ``train summary`` and a JSON object: the update count,
+the last epoch's train loss, the last validation's mAP and the kernels'
+launch counts of rank 0's process (its share: its rows' steps and
+validation forwards).
 Time-parallel video training (``parallel/cp.py``): each clip's frames over
 ``--time_parallel`` ranks, the clips over the rest (a ("data", "time") mesh):
     python -m torch.distributed.run --nproc_per_node N -m unipose_tpu_torch.cli.train \

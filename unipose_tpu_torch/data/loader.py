@@ -7,17 +7,64 @@ of the device step; samples are collated into numpy batches with static
 shapes (drop_last in train).
 
 A copy of ``unipose_tpu/data/loader.py`` with its imports re-rooted onto
-``unipose_tpu_torch``.
+``unipose_tpu_torch``, and one addition: a loader given a ``shard``
+(index, count) loads only that rank's rows of each global batch, as each
+process's loader does under JAX's multi-host feed (``put_sharded``,
+unipose_tpu/parallel/mesh.py:151-163).  Every rank walks the same global
+order and the same number of global batches; a rank's rows are
+``parallel/mesh.py::shard_rows`` of the global batch, the rows that
+``shard_batch`` would cut from it; an eval split's ragged last batch is
+first padded to the global batch size by repeating its last index, as the
+``Trainer`` pads a global batch.  Such a batch carries ``"shard"`` (the
+index and count) and ``"global_real"`` (the real rows of the global batch:
+the rank's rows at and above it are padding).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from unipose_tpu_torch.data import transforms as T
+from unipose_tpu_torch.parallel.mesh import shard_rows
+
+Shard = Optional[Tuple[int, int]]
+
+
+def as_shard(shard, batch_size: int) -> Shard:
+    """``shard`` as an (index, count) tuple, None for a whole batch (no
+    shard, or a count of 1); a global batch size that the count does not
+    divide raises."""
+    if shard is None or int(shard[1]) == 1:
+        return None
+    shard = (int(shard[0]), int(shard[1]))
+    shard_rows(batch_size, shard, "global batch")  # raises where count does not divide it
+    return shard
+
+
+def local_indices(idxs: Sequence[int], batch_size: int, shard: Shard):
+    """(the sample indices of ``shard``'s rows of a global batch, the real
+    rows of the global batch).  A ragged global batch is padded to
+    ``batch_size`` by repeating its last index first; without a shard the
+    batch is returned as it is."""
+    idxs = np.asarray(idxs)
+    n = len(idxs)
+    if shard is None:
+        return idxs, n
+    if n < batch_size:
+        idxs = np.concatenate([idxs, np.repeat(idxs[-1:], batch_size - n)])
+    return idxs[shard_rows(batch_size, shard)], n
+
+
+def mark_shard(batch: Dict[str, Any], shard: Shard, global_real: int) -> Dict[str, Any]:
+    """Mark a sharded loader's batch with its shard and the global batch's
+    real rows (an unsharded batch stays as it is)."""
+    if shard is not None:
+        batch["shard"] = shard
+        batch["global_real"] = int(global_real)
+    return batch
 
 
 def collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -41,9 +88,13 @@ class PrefetchLoader:
         drop_last: bool = True,
         seed: int = 0,
         prefetch: int = 4,
+        shard: Shard = None,
     ):
+        """``batch_size`` is the global batch; ``shard`` (index, count): load
+        only that rank's rows of each (module docstring)."""
         self.dataset = dataset
         self.batch_size = int(batch_size)
+        self.shard = as_shard(shard, self.batch_size)
         self.shuffle = shuffle
         self.num_workers = max(1, int(num_workers))
         self.drop_last = drop_last
@@ -70,15 +121,18 @@ class PrefetchLoader:
         order = self._order()
         n_batches = len(self)
         batches = [
-            order[i * self.batch_size : (i + 1) * self.batch_size]
+            local_indices(order[i * self.batch_size : (i + 1) * self.batch_size],
+                          self.batch_size, self.shard)
             for i in range(n_batches)
         ]
         if not batches:
             return
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
 
-            def load_batch(idxs):
-                return collate([self.dataset[int(i)] for i in idxs])
+            def load_batch(rows):
+                idxs, global_real = rows
+                return mark_shard(collate([self.dataset[int(i)] for i in idxs]),
+                                  self.shard, global_real)
 
             # simple sliding-window prefetch
             inflight = [pool.submit(load_batch, b) for b in batches[: self.prefetch]]
@@ -106,6 +160,7 @@ def get_dataloader(
     val_batch_size: int = 1,
     use_native: Optional[bool] = None,
     input_size: int = 368,
+    shard: Shard = None,
 ):
     """Dataset wiring mirroring the reference factory
     (utils/utils.py:231-351):
@@ -151,6 +206,12 @@ def get_dataloader(
     The port's LSP branch honors it too (the JAX factory resizes LSP to 368
     whatever it says), so that ``cli/train.py --input_size`` can train on
     LSP files at a reduced size; at 368 the batches are the JAX factory's.
+
+    ``shard`` — (index, count): every split loads only that rank's rows of
+    each global batch (``batch_size`` and ``val_batch_size`` stay global;
+    the module docstring), on every route; a batch size that the count does
+    not divide raises.  A port addition: JAX's factory leaves the local
+    portion to each process's caller (mesh.py:151-163).
     """
     from unipose_tpu_torch.data.bbc import BBCDataset
     from unipose_tpu_torch.data.lsp import LSPDataset
@@ -174,10 +235,10 @@ def get_dataloader(
         """No-augmentation eval split: native C++ decode path when available
         (batch-identical to the Python path), PrefetchLoader otherwise."""
         if native_ok and native_builder is not None:
-            return native_builder(ds, val_batch_size)
+            return native_builder(ds, val_batch_size, shard=shard)
         return PrefetchLoader(
             ds, val_batch_size, shuffle=False, num_workers=workers,
-            drop_last=False,
+            drop_last=False, shard=shard,
         )
 
     train_loader = val_loader = test_loader = None
@@ -197,7 +258,7 @@ def get_dataloader(
                         "lspet", train_dir, sigma, stride, None,
                         input_size=input_size,
                     ),
-                    batch_size, seed=seed,
+                    batch_size, seed=seed, shard=shard,
                 )
             else:
                 train_loader = PrefetchLoader(
@@ -206,7 +267,7 @@ def get_dataloader(
                         T.Compose([T.RandomHorizontalFlip()]),
                         input_size=input_size,
                     ),
-                    batch_size, shuffle=True, num_workers=workers, seed=seed,
+                    batch_size, shuffle=True, num_workers=workers, seed=seed, shard=shard,
                 )
         if val_dir:
             from unipose_tpu_torch.data.native_loader import native_lsp_val_loader
@@ -230,12 +291,12 @@ def get_dataloader(
 
                 train_loader = native_mpii_train_loader(
                     MPIIDataset(train_dir, sigma, "Train", None),
-                    batch_size, seed=seed,
+                    batch_size, seed=seed, shard=shard,
                 )
             else:
                 train_loader = PrefetchLoader(
                     MPIIDataset(train_dir, sigma, "Train", T.Compose([T.TestResized(368)])),
-                    batch_size, shuffle=True, num_workers=workers, seed=seed,
+                    batch_size, shuffle=True, num_workers=workers, seed=seed, shard=shard,
                 )
         if val_dir:
             from unipose_tpu_torch.data.native_loader import native_mpii_val_loader
@@ -274,12 +335,12 @@ def get_dataloader(
                 )
 
                 train_loader = native_penn_train_loader(
-                    ds, clip_batch, seed=seed
+                    ds, clip_batch, seed=seed, shard=shard
                 )
             else:
                 train_loader = PrefetchLoader(
                     ds, clip_batch, shuffle=True, num_workers=workers,
-                    seed=seed,
+                    seed=seed, shard=shard,
                 )
         if val_dir:
             from unipose_tpu_torch.data.native_loader import native_penn_val_loader
@@ -301,17 +362,19 @@ def get_dataloader(
                     train_dir, sigma, "Train",
                     T.Compose([T.TestResized(368), T.RandomHorizontalFlip_NTID()]),
                 ),
-                batch_size, shuffle=True, num_workers=workers, seed=seed,
+                batch_size, shuffle=True, num_workers=workers, seed=seed, shard=shard,
             )
         if val_dir:
             val_loader = PrefetchLoader(
                 NTIDDataset(val_dir, sigma, "Val", T.Compose([T.TestResized(368)])),
                 val_batch_size, shuffle=False, num_workers=workers, drop_last=False,
+                shard=shard,
             )
         if test_dir:
             test_loader = PrefetchLoader(
                 NTIDDataset(test_dir, sigma, "Test"),
                 val_batch_size, shuffle=False, num_workers=workers, drop_last=False,
+                shard=shard,
             )
     elif dataset == "PoseTrack":
         # Reference branch utils/utils.py:318-329 (its posetrack_data module
@@ -321,7 +384,7 @@ def get_dataloader(
                 PoseTrackDataset(
                     True, train_dir, sigma, stride, T.Compose([T.TestResized(368)])
                 ),
-                batch_size, shuffle=True, num_workers=workers, seed=seed,
+                batch_size, shuffle=True, num_workers=workers, seed=seed, shard=shard,
             )
         if val_dir:
             val_loader = PrefetchLoader(
@@ -329,6 +392,7 @@ def get_dataloader(
                     False, val_dir, sigma, stride, T.Compose([T.TestResized(368)])
                 ),
                 val_batch_size, shuffle=False, num_workers=workers, drop_last=False,
+                shard=shard,
             )
     elif dataset == "BBC":
         T_mem = frame_memory or 5
@@ -343,7 +407,7 @@ def get_dataloader(
 
                 train_loader = native_bbc_train_loader(
                     BBCDataset(train_dir, sigma, "Train", None, seq_len=T_mem),
-                    batch_size, seed=seed,
+                    batch_size, seed=seed, shard=shard,
                 )
             else:
                 train_loader = PrefetchLoader(
@@ -354,7 +418,7 @@ def get_dataloader(
                         ),
                         seq_len=T_mem,
                     ),
-                    batch_size, shuffle=True, num_workers=workers, seed=seed,
+                    batch_size, shuffle=True, num_workers=workers, seed=seed, shard=shard,
                 )
         if val_dir:
             from unipose_tpu_torch.data.native_loader import native_bbc_eval_loader

@@ -29,7 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from unipose_tpu_torch.parallel.mesh import Mesh, make_mesh
+from unipose_tpu_torch.parallel.mesh import Mesh, local_shard, make_mesh
 
 # Leaf names of (B, T, ...) per-frame clip tensors: dim 1 is time and is
 # cut over the 'time' axis.  Any other array leaf is per clip and is cut
@@ -98,7 +98,14 @@ def shard_clip_batch(batch, mesh: Mesh):
     """This rank's block of a video batch (a dict, nested dicts walked):
     a leaf of ``CLIP_LEAVES`` with ndim >= 2 gets its (clip, frame) block;
     any other array leaf (numpy or torch) is cut on its leading axis over
-    'data' only; anything else passes through."""
+    'data' only; anything else passes through.  A batch that a loader
+    sharded over 'data' (marked ``"shard"``, ``parallel/mesh.py::
+    local_shard``) holds this rank's clips already: only its frames are
+    cut, as JAX's ``put_sharded`` takes a process's local clips."""
+    local = isinstance(batch, dict) and local_shard(batch, mesh) is not None
+
+    def clips_of(n):
+        return slice(None) if local else _block(mesh, "data", n, "clip")
 
     def put(name, x):
         if isinstance(x, dict):
@@ -106,9 +113,8 @@ def shard_clip_batch(batch, mesh: Mesh):
         if not isinstance(x, (np.ndarray, torch.Tensor)) or x.ndim < 1:
             return x
         if name in CLIP_LEAVES and x.ndim >= 2:
-            clips, frames = clip_sharding(mesh, x.shape[0], x.shape[1])
-            return x[clips, frames]
-        return x[_block(mesh, "data", x.shape[0], "clip")]
+            return x[clips_of(x.shape[0]), _block(mesh, "time", x.shape[1], "frame")]
+        return x[clips_of(x.shape[0])]
 
     return put(None, batch)
 
@@ -161,8 +167,9 @@ def under_mesh(mesh: Mesh, fn):
     :func:`time_group`).  In JAX the wrapper is ``jax.set_mesh``, the
     context that the model's sharding constraints need while they trace;
     here the binding is read at every call, and outside it a model with
-    ``spmd_axes`` runs the clips it is handed whole, as one process does
-    (rank 0's validation), except in training, where it raises."""
+    ``spmd_axes`` runs the clips it is handed whole, as one process does,
+    except in training, where it raises.  The ``Trainer`` wraps its train
+    and validation steps (JAX trainer.py:160-164)."""
 
     def wrapped(*args, **kwargs):
         prev, _bound["mesh"] = _bound["mesh"], mesh

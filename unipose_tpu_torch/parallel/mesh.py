@@ -9,12 +9,18 @@ rank is a process with one device, launched by ``torch.distributed.run``
 order, and ``DistributedDataParallel`` averages the gradients.  The global
 batch is ``TrainConfig.batch_size``; a rank trains on its contiguous rows
 (``shard_batch``), as a data-sharded ``jax.Array`` lays them out.
+
+A rank's share is ``shard_of(mesh)``, its (index, count) on the data axis,
+and its rows of a global batch are ``shard_rows``.  The loaders take the
+same shard (``data/loader.py``, ``data/native_loader.py``) and decode only
+those rows, each batch marked with its ``"shard"``: such a batch is already
+local, and ``shard_batch`` passes it through, as JAX's ``put_sharded``
+takes each process's local portion of the global batch (mesh.py:151-163).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import datetime
 import hashlib
 import os
 import warnings
@@ -53,11 +59,8 @@ def maybe_init_distributed(device=None, *, backend: Optional[str] = None,
         if dev.index is None:
             dev = torch.device("cuda", local)
         torch.cuda.set_device(dev)
-    # the timeout covers rank 0's validation, which the other ranks wait out
-    # at a broadcast (train/trainer.py); NCCL's default is 10 minutes
     dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"),
-                            init_method=init_method, world_size=world, rank=rank,
-                            timeout=datetime.timedelta(minutes=60))
+                            init_method=init_method, world_size=world, rank=rank)
     _state["device"] = dev
     return dev
 
@@ -90,11 +93,13 @@ class Mesh:
     def axis_size(self, name: str) -> int:
         return dict(zip(self.axis_names, self.shape)).get(name, 1)
 
-    def coordinate(self, name: str) -> int:
-        """This rank's index along axis ``name`` (0 off the mesh's axes)."""
+    def coordinate(self, name: str, rank: Optional[int] = None) -> int:
+        """This rank's (or ``rank``'s) index along axis ``name`` (0 off the
+        mesh's axes)."""
         if name not in self.axis_names:
             return 0
-        return int(np.unravel_index(self.rank, self.shape)[self.axis_names.index(name)])
+        r = self.rank if rank is None else rank
+        return int(np.unravel_index(r, self.shape)[self.axis_names.index(name)])
 
 
 def make_mesh(shape: Sequence[int] = (-1,), axes: Sequence[str] = ("data",),
@@ -135,20 +140,51 @@ def make_mesh(shape: Sequence[int] = (-1,), axes: Sequence[str] = ("data",),
     return Mesh(tuple(shape), tuple(axes), rank=rank, world=world, distributed=up)
 
 
+def shard_of(mesh: Mesh, axis: str = "data") -> Tuple[int, int]:
+    """This rank's (index, count) on ``axis``: the share of every global
+    batch that it loads and trains on (JAX ``batch_sharding``)."""
+    return mesh.coordinate(axis), mesh.axis_size(axis)
+
+
+def shard_rows(n: int, shard: Tuple[int, int], what: str = "batch") -> slice:
+    """The rows of a global batch of ``n`` that ``shard`` = (i, count) owns:
+    [i*n/count, (i+1)*n/count), as GSPMD lays a data-sharded array out.
+    An ``n`` that ``count`` does not divide raises."""
+    i, count = shard
+    if n % count:
+        raise ValueError(f"{what} {n} is not divisible by the data axis ({count})")
+    b = n // count
+    return slice(i * b, (i + 1) * b)
+
+
+def local_shard(batch: dict, mesh: Mesh, axis: str = "data") -> Optional[Tuple[int, int]]:
+    """The shard that a loader marked ``batch`` with (``"shard"``), None for
+    a global batch; a shard that is not this rank's on ``axis`` raises."""
+    marked = batch.get("shard")
+    if marked is None:
+        return None
+    if tuple(marked) != shard_of(mesh, axis):
+        raise ValueError(f"a batch loaded for shard {tuple(marked)} reached the rank at "
+                         f"{shard_of(mesh, axis)} of the {axis!r} axis")
+    return tuple(marked)
+
+
 def shard_batch(batch: dict, mesh: Mesh, axis: str = "data") -> dict:
     """This rank's contiguous rows of a global batch: for a data axis of
     size n, rows [i*B/n, (i+1)*B/n) at coordinate i (JAX mesh.py:166-179,
     where GSPMD lays a data-sharded batch out so).  Leaves without a
-    leading axis pass through; a batch that n does not divide raises."""
-    n, i = mesh.axis_size(axis), mesh.coordinate(axis)
+    leading axis pass through; a batch that n does not divide raises.  A
+    batch that a sharded loader made is this rank's already and passes
+    through unchanged (JAX ``put_sharded``); one made for another rank
+    raises."""
+    if local_shard(batch, mesh, axis) is not None:
+        return batch
+    shard = shard_of(mesh, axis)
 
     def rows(v):
-        if getattr(v, "ndim", 0) < 1 or n == 1:
+        if getattr(v, "ndim", 0) < 1 or shard[1] == 1:
             return v
-        if v.shape[0] % n:
-            raise ValueError(f"batch {v.shape[0]} is not divisible by the {axis!r} axis ({n})")
-        b = v.shape[0] // n
-        return v[i * b:(i + 1) * b]
+        return v[shard_rows(v.shape[0], shard)]
 
     return {k: rows(v) for k, v in batch.items()}
 

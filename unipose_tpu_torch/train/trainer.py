@@ -18,17 +18,23 @@ The video variant (``ModelConfig(variant="lstm")``) trains on clip batches
 (``frames``, ``kpts``, ``centers``) of ``frame_memory`` frames and validates
 per frame, in dataset order.
 
-Data parallelism (JAX trainer.py:100-126, 154, 189-195): under a process
-group (``parallel/mesh.py``; ``cli/train.py`` under ``torch.distributed.run``)
-``TrainConfig.batch_size`` is the global batch; every rank loads it and
-uploads its rows (``shard_batch``), and its step runs on the model under
+Data parallelism (JAX trainer.py:100-126, 154, 189-195, 237-252): under a
+process group (``parallel/mesh.py``; ``cli/train.py`` under
+``torch.distributed.run``) ``TrainConfig.batch_size`` is the global batch;
+the mesh is built first, and every rank's loaders decode only its rows of
+each global batch (``shard_of``: the rows ``shard_batch`` would cut, as
+each process's loader yields its local portion under JAX's multi-host
+``put_sharded``); loaders passed in through ``loaders=`` are global and
+cut on the host.  A rank's step runs on the model under
 ``DistributedDataParallel``, so each rank's ``heatmap_mse`` is its rows'
 mean and the averaged gradient the global batch's.  ``ModelConfig.sync_bn``
 picks the BatchNorm statistics: global moments all-reduced across the ranks,
 or per-rank moments with pooled running statistics (``bn_groups`` = the
 data axis's size).  The dropout masks are the global batch's, each rank
-keeping its rows.  Only rank 0 logs, validates and writes checkpoints;
-every rank restores.
+keeping its rows.  Every rank validates its rows of each (padded) global
+batch; the coordinates are gathered once a validation and scored on rank
+0 in one process's order, which broadcasts the mAP.  Only rank 0 logs and
+writes checkpoints; every rank restores.
 
 Time parallelism (JAX trainer.py:82-115, 193, 251; ``parallel/cp.py``): a
 video model with ``ModelConfig.spmd_axes`` on a ("data", "time") mesh
@@ -38,7 +44,10 @@ the global batch (``shard_clip_batch``), and its train step runs under
 ``heatmap_mse`` over its frames times the clip's T, averaged by DDP, is the
 global step.  The BatchNorms take their moments over every rank
 (``sync_bn=True`` only), the dropout masks are the global batch's (the
-rank's clips and frames), and validation runs on rank 0 over whole clips.
+rank's clips and frames).  A rank loads its data coordinate's clips whole
+and cuts its frames on the host; validation runs ``under_mesh`` on every
+rank's block, the ConvLSTM's input gathered over the time axis, as JAX's
+(trainer.py:164).
 
 One deliberate difference: the train step runs the fused loss
 (``heatmap_mse``, the same function as the materialised MSE, whose targets
@@ -62,7 +71,14 @@ from unipose_tpu_torch.eval.report import print_accuracies
 from unipose_tpu_torch.models.layers import set_bn_process_group, use_dropout_generator
 from unipose_tpu_torch.ops.resize import bilinear_resize
 from unipose_tpu_torch.parallel.cp import make_video_mesh, shard_clip_batch, under_mesh
-from unipose_tpu_torch.parallel.mesh import data_parallel, make_mesh, replicate, shard_batch
+from unipose_tpu_torch.parallel.mesh import (
+    data_parallel,
+    local_shard,
+    make_mesh,
+    replicate,
+    shard_batch,
+    shard_of,
+)
 from unipose_tpu_torch.train.checkpoint import (
     CheckpointManager,
     save_checkpoint,
@@ -96,10 +112,12 @@ class Trainer:
         """``spec``/``loaders`` override what derives from
         ``model_config.dataset``; ``loaders`` is (train, val[, test]) with
         the loader protocol (``__len__``, ``set_epoch``, ``__iter__`` of
-        numpy batches, ``batch_size``).  Runs on the card unless
-        ``device="cpu"``.  ``mesh`` overrides ``make_mesh(train_config.
-        mesh_shape, train_config.mesh_axes)``, where the default shape (1,)
-        stands for (-1,): the data axis over every rank."""
+        numpy batches, ``batch_size``), global batches, each rank keeping
+        its rows; a loader with a ``shard`` that is not this rank's raises.
+        Runs on the card unless ``device="cpu"``.  ``mesh`` overrides
+        ``make_mesh(train_config.mesh_shape, train_config.mesh_axes)``,
+        where the default shape (1,) stands for (-1,): the data axis over
+        every rank."""
         self.model_config = model_config
         self.train_config = train_config
         # TrainConfig.sigma/stride resolve into the spec here; the loaders
@@ -108,25 +126,6 @@ class Trainer:
         self.video = model_config.variant == "lstm"
         device = resolve_device(device)
         self.log_every = log_every
-
-        if loaders is not None:
-            self.train_loader, self.val_loader = loaders[0], loaders[1]
-        elif train_dir or val_dir:
-            self.train_loader, self.val_loader, _ = get_dataloader(
-                model_config.dataset,
-                train_dir,
-                val_dir,
-                self.spec.sigma,
-                self.spec.stride,
-                train_config.workers,
-                train_config.batch_size,
-                frame_memory=model_config.frame_memory if self.video else None,
-                seed=train_config.seed,
-                val_batch_size=train_config.val_batch_size,
-                input_size=self.spec.input_size,
-            )
-        else:
-            self.train_loader = self.val_loader = None
 
         shape = tuple(train_config.mesh_shape)
         if shape == (1,):
@@ -162,6 +161,42 @@ class Trainer:
         if train_config.batch_size % data:
             raise ValueError(f"batch_size {train_config.batch_size} is not divisible by the "
                              f"data-parallel shard count ({data})")
+        # every rank validates its rows of each global validation batch, as
+        # JAX's sharded device_put lays them out (and refuses)
+        if loaders is not None:
+            val_batch = getattr(loaders[1], "batch_size", None)
+        else:
+            val_batch = train_config.val_batch_size if val_dir else None
+        if val_batch and val_batch % data:
+            raise ValueError(f"val_batch_size {val_batch} is not divisible by the "
+                             f"data-parallel shard count ({data})")
+
+        # the loaders decode only this rank's rows of each global batch
+        shard = shard_of(self.mesh) if data > 1 else None
+        if loaders is not None:
+            self.train_loader, self.val_loader = loaders[0], loaders[1]
+        elif train_dir or val_dir:
+            self.train_loader, self.val_loader, _ = get_dataloader(
+                model_config.dataset,
+                train_dir,
+                val_dir,
+                self.spec.sigma,
+                self.spec.stride,
+                train_config.workers,
+                train_config.batch_size,
+                frame_memory=model_config.frame_memory if self.video else None,
+                seed=train_config.seed,
+                val_batch_size=train_config.val_batch_size,
+                input_size=self.spec.input_size,
+                shard=shard,
+            )
+        else:
+            self.train_loader = self.val_loader = None
+        for loader in (self.train_loader, self.val_loader):
+            marked = getattr(loader, "shard", None)
+            if marked is not None and tuple(marked) != shard_of(self.mesh):
+                raise ValueError(f"a loader of shard {tuple(marked)} on the rank at "
+                                 f"{shard_of(self.mesh)} of the data axis")
         # every rank holds b_loc * t_loc frames, so DDP's mean of the ranks'
         # losses (each a mean over its frames) is the global batch's
         self.time_shards = n_time if self.cp else 1
@@ -204,14 +239,18 @@ class Trainer:
             replicate(self.model, self.mesh)
         self.train_step = make_train_step(train_model, self.optimizer, self.spec, video=self.video,
                                           fused_loss=True, time_shards=self.time_shards)
+        self.val_step = make_val_step(self.model, self.spec, video=self.video)
         if self.cp:
             self.train_step = under_mesh(self.mesh, self.train_step)
-        self.val_step = make_val_step(self.model, self.spec, video=self.video)
+            self.val_step = under_mesh(self.mesh, self.val_step)
 
         self.is_best = 0.0
         self.best_pck = 0.0
         self.best_pckh = 0.0
         self.model_name = train_config.model_name
+        # rank 0: the last validation's scored (pred, target) coordinates,
+        # (frames, K+1, 2) each, in one process's order
+        self.val_coords = None
 
         # TSV metric log (counterpart of extra_utils/logger.py)
         self.logger = None
@@ -235,18 +274,30 @@ class Trainer:
     def _upload(self, batch):
         return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device) for k in _KEEP if k in batch}
 
-    def _device_batch(self, batch):
-        """The rank's rows of a global batch, on the device: under time
-        parallelism its (clip, frame) block of clips of ``frame_memory``
-        frames."""
+    @staticmethod
+    def _host_batch(batch) -> dict:
+        """The model's leaves of a loader's batch, and its shard mark."""
         sub = {k: np.asarray(batch[k]) for k in _KEEP if k in batch}
+        if batch.get("shard") is not None:
+            sub["shard"] = batch["shard"]
+        return sub
+
+    def _rows(self, sub):
+        """The rank's rows of a host batch: a sharded loader's pass through
+        (under time parallelism only their frames are cut), a global batch
+        is cut; under time parallelism its (clip, frame) block of clips of
+        ``frame_memory`` frames."""
         if not self.cp:
-            return self._upload(shard_batch(sub, self.mesh))
+            return shard_batch(sub, self.mesh)
         t = sub["frames"].shape[1]
         if t != self.model_config.frame_memory:
             raise ValueError(f"a clip of {t} frames; time parallelism splits frame_memory="
                              f"{self.model_config.frame_memory}")
-        return self._upload(shard_clip_batch(sub, self.mesh))
+        return shard_clip_batch(sub, self.mesh)
+
+    def _device_batch(self, batch):
+        """The rank's rows of a batch, on the device (``_rows``)."""
+        return self._upload(self._rows(self._host_batch(batch)))
 
     def _loss_sum(self, pending) -> float:
         """The sum of the losses in ``pending``, averaged over the ranks
@@ -313,15 +364,21 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _device_batch_padded(self, batch, pad_to):
-        """Pad a ragged last batch to ``pad_to`` by repeating its last
-        sample.  Returns (device batch, real samples, resolved pad size)."""
-        sub = {k: np.asarray(batch[k]) for k in _KEEP if k in batch}
-        n = sub["kpts"].shape[0]
-        if pad_to is None:
-            pad_to = n
-        if n < pad_to:
-            sub = {k: np.concatenate([v, np.repeat(v[-1:], pad_to - n, axis=0)]) for k, v in sub.items()}
-        return self._upload(sub), n, pad_to
+        """The rank's rows of a validation batch padded to ``pad_to`` global
+        rows, on the device.  A global batch that is ragged is padded by
+        repeating its last sample, then cut (JAX trainer.py:237-252); a
+        sharded loader's batch comes padded and cut.  Returns (device batch,
+        real rows of the global batch, resolved pad size)."""
+        sub = self._host_batch(batch)
+        if local_shard(sub, self.mesh) is not None:
+            n = int(batch["global_real"])
+        else:
+            n = sub["kpts"].shape[0]
+            if pad_to is None:
+                pad_to = n
+            if n < pad_to:
+                sub = {k: np.concatenate([v, np.repeat(v[-1:], pad_to - n, axis=0)]) for k, v in sub.items()}
+        return self._upload(self._rows(sub)), n, pad_to
 
     def validation(self, epoch: int) -> float:
         """Validation (reference behaviour: unipose.py:133-193) with the
@@ -330,48 +387,74 @@ class Trainer:
         order), running means gated per joint by visibility
         (unipose.py:163-176).  Returns the mAP.
 
-        Under data parallelism rank 0 validates alone, over the whole
-        validation set as one process does, so its metrics are the one
-        process's bit for bit; the other ranks wait for its mAP, which
-        every rank returns."""
+        Across ranks every rank runs the eval step on its rows of every
+        global batch (the same batches, padding included, so the same
+        collectives), the (pred, target) coordinates are all-gathered once,
+        and rank 0 puts them back in one process's order, drops the padding
+        and scores them, so its metrics are one process's bit for bit; it
+        broadcasts the mAP, mPCK and mPCKh, and every rank keeps its bests
+        from them."""
+        pending, valids, pad_to = [], [], getattr(self.val_loader, "batch_size", None)
+        for batch in self.val_loader:
+            db, n_valid, pad_to = self._device_batch_padded(batch, pad_to)
+            pred, tgt, _ = self.val_step(db)
+            pending.append(torch.stack([pred, tgt]))  # (2, rows, [frames,] K+1, 2)
+            valids.append(n_valid)
+        if not pending:
+            return 0.0
+        local = torch.stack(pending)
+        if self.mesh.size == 1:
+            return self._record(epoch, *self._score(epoch, local.cpu().numpy(), valids))
         if not self.mesh.distributed:
-            return self._validation(epoch)
+            raise RuntimeError(f"validation on a mesh of {self.mesh.size} ranks needs their process group")
         import torch.distributed as dist
 
-        mAP = torch.tensor(self._validation(epoch) if self.is_main else 0.0,
-                           dtype=torch.float64, device=self.device)
-        dist.broadcast(mAP, src=0)
-        return mAP.item()
+        parts = [torch.empty_like(local) for _ in range(self.mesh.world)]
+        dist.all_gather(parts, local.contiguous())  # the one gather of a validation
+        metrics = torch.zeros(3, dtype=torch.float64, device=self.device)
+        if self.is_main:
+            coords = self._global_batches(parts).cpu().numpy()
+            metrics = torch.tensor(self._score(epoch, coords, valids), dtype=torch.float64,
+                                   device=self.device)
+        dist.broadcast(metrics, src=0)
+        return self._record(epoch, *metrics.tolist())
 
-    def _validation(self, epoch: int) -> float:
+    def _global_batches(self, parts) -> torch.Tensor:
+        """Every rank's (batches, 2, rows, ...) coordinates put back into the
+        padded global batches (batches, 2, B, ...): the rows of data index
+        d, and under time parallelism each clip's frame blocks in time
+        order.  Ranks that differ only on other axes hold the same rows;
+        the first is taken."""
+        mesh = self.mesh
+        spread = ("data", "time") if self.cp else ("data",)
+        owners = [r for r in range(mesh.size)
+                  if all(mesh.coordinate(a, r) == 0 for a in mesh.axis_names if a not in spread)]
+        by_data = []
+        for d in range(mesh.axis_size("data")):
+            ranks = sorted((r for r in owners if mesh.coordinate("data", r) == d),
+                           key=lambda r: mesh.coordinate("time", r))
+            by_data.append(torch.cat([parts[r] for r in ranks], dim=3) if self.cp else parts[ranks[0]])
+        return torch.cat(by_data, dim=2)
+
+    def _score(self, epoch: int, coords: np.ndarray, valids) -> tuple:
+        """The metrics of the global batches' (pred, target) coordinates,
+        padding rows dropped, in dataset order (a clip's frames in order);
+        prints them.  Returns (mAP, mPCK, mPCKh)."""
         k = self.model_config.num_classes
         AP = np.zeros(k + 1)
         PCK = np.zeros(k + 1)
         PCKh = np.zeros(k + 1)
         count = np.zeros(k + 1)
 
-        pending = []  # (pred coords, target coords, loss) on the device
-        valids = []
-        pad_to = getattr(self.val_loader, "batch_size", None)
-        for batch in self.val_loader:
-            db, n_valid, pad_to = self._device_batch_padded(batch, pad_to)
-            pending.append(self.val_step(db))
-            valids.append(n_valid)
-        if not pending:
-            return 0.0
-
-        preds = torch.cat([p for p, _, _ in pending]).cpu().numpy()
-        tgts = torch.cat([t for _, t, _ in pending]).cpu().numpy()
-
         hm = self.spec.heatmap_size
         frames = []  # (pred (K+1, 2), target (K+1, 2)) in dataset order
         for bi, n_valid in enumerate(valids):
             for s in range(n_valid):
-                i = bi * pad_to + s
                 if self.video:
-                    frames.extend((preds[i, j], tgts[i, j]) for j in range(preds.shape[1]))
+                    frames.extend((coords[bi, 0, s, j], coords[bi, 1, s, j]) for j in range(coords.shape[3]))
                 else:
-                    frames.append((preds[i], tgts[i]))
+                    frames.append((coords[bi, 0, s], coords[bi, 1, s]))
+        self.val_coords = tuple(np.stack([f[i] for f in frames]) for i in (0, 1))
 
         for frame_idx, (p, t) in enumerate(frames):
             acc, acc_pck, acc_pckh, _, _, visible = accuracy_from_coords(
@@ -391,18 +474,23 @@ class Trainer:
         mPCK = PCK[1:].sum() / k
         mPCKh = PCKh[1:].sum() / k
         print_accuracies(mAP, AP, mPCKh, PCKh, mPCK, PCK, self.model_config.dataset)
+        return mAP, mPCK, mPCKh
 
+    def _record(self, epoch: int, mAP: float, mPCK: float, mPCKh: float) -> float:
+        """Keep the bests (every rank); rank 0 writes the best checkpoint,
+        prints the bests and appends the log line.  Returns the mAP."""
         if mAP > self.is_best:
             self.is_best = mAP
-            if self.model_name:
+            if self.model_name and self.is_main:
                 save_checkpoint(self.state, True, self.model_name)
                 print(f"Model saved to {self.model_name}")
         self.best_pckh = max(self.best_pckh, mPCKh)
         self.best_pck = max(self.best_pck, mPCK)
-        print(
-            "Best AP = %.2f%%; PCK = %2.2f%%; PCKh = %2.2f%%"
-            % (self.is_best * 100, self.best_pck * 100, self.best_pckh * 100)
-        )
+        if self.is_main:
+            print(
+                "Best AP = %.2f%%; PCK = %2.2f%%; PCKh = %2.2f%%"
+                % (self.is_best * 100, self.best_pck * 100, self.best_pckh * 100)
+            )
         if self.logger is not None:
             self.logger.append(
                 [epoch, self._epoch_stats.get(epoch, float("nan")), mAP, mPCK, mPCKh]
